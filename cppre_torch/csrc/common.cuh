@@ -1,0 +1,33 @@
+// Shared helpers of the cppre_torch CUDA kernels.
+//
+// Every source in this directory is compiled on its own into a shared
+// library with a plain C interface (see cppre_torch/ops/kernels/_build.py):
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC -o lib<name>.so <name>.cu
+// Each exported function launches its kernels on the stream it is given and
+// returns cudaGetLastError() as an int; the Python wrapper raises on a
+// non-zero value. No kernel allocates: the wrapper passes every output and
+// scratch buffer in.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#define CPPRE_EXPORT extern "C" __attribute__((visibility("default")))
+
+// Message for a code returned by one of the exported functions.
+CPPRE_EXPORT const char* cppre_error_string(int code) {
+    return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Exact gelu (approximate=False), as torch.nn.functional.gelu computes it.
+__device__ __forceinline__ float gelu_exact(float u) {
+    return 0.5f * u * (1.0f + erff(u * 0.70710678118654752440f));
+}
+
+// Opt a kernel into more than the default 48 KB of dynamic shared memory.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(bytes));
+}

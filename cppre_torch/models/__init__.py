@@ -1,0 +1,7 @@
+"""FNO2d surrogate and its inference path through the hand-written kernels."""
+
+from .fno import FNO2d, FNO_multi2d, SpectralConv2d, count_params
+from .fused import fno2d_forward_fused, fused_supported, make_fused_apply
+
+__all__ = ["FNO2d", "FNO_multi2d", "SpectralConv2d", "count_params",
+           "fno2d_forward_fused", "fused_supported", "make_fused_apply"]

@@ -1,0 +1,215 @@
+"""FNO2d inference kernels: the Fourier block (K4) and the projection head (K5).
+
+Port of `cppre/ops/pallas/fno_block.py` (forward half). Each kernel has a
+plain PyTorch version of the same math beside it:
+
+* `fno_block2d_fused` (CUDA `csrc/fno_block.cu`) / `fno_block2d_plain`:
+  one Fourier block, gelu(mlp(spectral(x)) + w(x) + x3), with the spectral
+  convolution as truncated DFTs against `_dft_tables`. x [B, W, V, Nx, Ny]
+  float32 -> same shape; x3 the batch-constant bias branch [1, W, V, Nx, Ny].
+* `projection2d_fused` / `projection2d_plain`: fc1 -> exact gelu -> fc2 per
+  pixel, z [B, V, Nx, Ny, W] -> [B, V, Nx, Ny, step].
+
+Weights come from the port's modules (`cppre_torch.models.fno`): a block is
+an `_FNOBlock2d`, the head two `_Linear`s. The kernels run at the true Nx
+and Ny; the JAX package's x padding to 8 rows and flattened head output
+were TPU layout needs and are gone.
+
+Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises. Each kernel wrapper counts its launches in `.launches`
+(one per block or head call).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+__all__ = [
+    "fno_block2d_fused",
+    "fno_block2d_plain",
+    "projection2d_fused",
+    "projection2d_plain",
+    "fno_kernel_supported",
+]
+
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+
+# What the CUDA kernels are compiled for (csrc/fno_block.cu): the channel
+# widths of the register-resident stages, the head's widest output step, and
+# the shared memory of one block.
+KERNEL_WIDTHS = (4, 8, 16, 32)
+KERNEL_MAX_STEP = 8
+_SMEM_LIMIT = 227 * 1024
+
+
+def fno_kernel_supported(width: int, step: int, nx: int, ny: int, m1: int, m2: int) -> bool:
+    """Whether the K4/K5 kernels take this configuration: a compiled width,
+    step <= 8, the forward-DFT stage's plane within shared memory, and the
+    modes within the one-sided spectrum (2*m1 <= Nx, m2 <= Ny//2+1)."""
+    smem = 4 * (nx * ny + 2 * nx * m2)
+    return (width in KERNEL_WIDTHS and 1 <= step <= KERNEL_MAX_STEP and smem <= _SMEM_LIMIT
+            and 2 * m1 <= nx and m2 <= ny // 2 + 1)
+
+
+@functools.lru_cache(maxsize=16)
+def _dft_tables(nx: int, ny: int, m1: int, m2: int, device=None):
+    """The eight transform tables, built in float64 and stored in float32
+    exactly as `cppre.ops.pallas.fno_block._dft_tables` builds them:
+    (cy, sy) [Ny, m2], (cx, sx) [Nx, K], (cxT, sxT) [K, Nx], and the
+    inverse-y tables (iyc, iys) [m2, Ny] with the Hermitian weights folded
+    in (1 for k=0 and, for even Ny with m2 == Ny//2+1, the Nyquist bin)."""
+    freqs = list(range(m1)) + list(range(nx - m1, nx))
+    ang_y = -2.0 * np.pi * np.outer(np.arange(ny), np.arange(m2)) / ny
+    cy, sy = np.cos(ang_y), np.sin(ang_y)
+    ang_x = -2.0 * np.pi * np.outer(np.arange(nx), freqs) / nx
+    cx, sx = np.cos(ang_x), np.sin(ang_x)
+    w = np.full(m2, 2.0)
+    w[0] = 1.0
+    if ny % 2 == 0 and m2 == ny // 2 + 1:
+        w[-1] = 1.0
+    iyc, iys = w[:, None] * cy.T, w[:, None] * sy.T
+    return tuple(torch.tensor(np.ascontiguousarray(t), dtype=torch.float32, device=device)
+                 for t in (cy, sy, cx, sx, cx.T, sx.T, iyc, iys))
+
+
+def _repack_spectral(conv, m1: int, m2: int):
+    """The block's two complex [in, out, V, m1, m2] weights -> real and
+    imaginary [in, out, V, m2, K] (K = 2*m1, low modes then high), the
+    kernel's frequency order."""
+    w = torch.cat([conv.weights1, conv.weights2], dim=3).transpose(3, 4)
+    return w.real.contiguous(), w.imag.contiguous()
+
+
+def _mat(lin):
+    """A 1x1 channel map's weight as [out, in] (a view)."""
+    return lin.weight.reshape(lin.weight.shape[0], lin.weight.shape[1])
+
+
+def _block_tensors(block, m1: int, m2: int):
+    wr, wi = _repack_spectral(block.conv, m1, m2)
+    return dict(wr=wr, wi=wi,
+                a1=_mat(block.mlp.mlp1), b1=block.mlp.mlp1.bias,
+                a2=_mat(block.mlp.mlp2), b2=block.mlp.mlp2.bias,
+                aw=_mat(block.w), bw=block.w.bias)
+
+
+def _channel(x, a, b):
+    """[B, Cin, ...] -> [B, Cout, ...]: b[o] + sum_i a[o, i] x[:, i]."""
+    return torch.movedim(F.linear(torch.movedim(x, 1, -1), a, b), -1, 1)
+
+
+# ---- K4 ---------------------------------------------------------------------
+
+def fno_block2d_plain(x, block, x3, m1: int, m2: int):
+    """Plain PyTorch Fourier block: the truncated DFT y then x, the
+    per-mode complex channel mix, the inverse x then y transform, the
+    channel MLP with exact gelu, the 1x1 bypass, the bias branch x3 and
+    the final gelu."""
+    b, w_ch, nv, nx, ny = x.shape
+    cy, sy, cx, sx, cxT, sxT, iyc, iys = _dft_tables(nx, ny, m1, m2, x.device)
+    t = _block_tensors(block, m1, m2)
+    yr, yi = x @ cy, x @ sy                                          # [B, W, V, Nx, m2]
+    zr = (torch.einsum("bcvxm,xk->bcvmk", yr, cx) - torch.einsum("bcvxm,xk->bcvmk", yi, sx))
+    zi = (torch.einsum("bcvxm,xk->bcvmk", yr, sx) + torch.einsum("bcvxm,xk->bcvmk", yi, cx))
+    eq = "bivmk,iovmk->bovmk"
+    mr = torch.einsum(eq, zr, t["wr"]) - torch.einsum(eq, zi, t["wi"])
+    mi = torch.einsum(eq, zr, t["wi"]) + torch.einsum(eq, zi, t["wr"])
+    vr = mr @ cxT + mi @ sxT                                          # [B, W, V, m2, Nx]
+    vi = mi @ cxT - mr @ sxT
+    spec = (vr.transpose(-1, -2) @ iyc + vi.transpose(-1, -2) @ iys) * (1.0 / (nx * ny))
+    h = F.gelu(_channel(spec, t["a1"], t["b1"]))
+    x1 = _channel(h, t["a2"], t["b2"])
+    x2 = _channel(x, t["aw"], t["bw"])
+    return F.gelu(x1 + x2 + x3)
+
+
+def fno_block2d_fused(x, block, x3, m1: int, m2: int):
+    """One Fourier block (kernel K4). x [B, W, V, Nx, Ny] float32; `block` an
+    `_FNOBlock2d` of the port (its `.b` bias branch is not read: the caller
+    passes it precomputed as x3 [1, W, V, Nx, Ny]). Returns [B, W, V, Nx, Ny].
+
+    Needs 2*m1 <= Nx and m2 <= Ny//2+1; on CUDA also a width the kernel is
+    compiled for (`fno_kernel_supported`)."""
+    if x.ndim != 5:
+        raise ValueError(f"fno_block2d_fused: expected x [B, W, V, Nx, Ny], got {tuple(x.shape)}")
+    b, w_ch, nv, nx, ny = x.shape
+    if not (2 * m1 <= nx and m2 <= ny // 2 + 1):
+        raise ValueError(f"modes ({m1}, {m2}) exceed the {nx}x{ny} grid's one-sided spectrum")
+    if not _build.on_cuda(x):
+        return fno_block2d_plain(x, block, x3, m1, m2)
+    if w_ch not in KERNEL_WIDTHS:
+        raise ValueError(f"fno_block2d_fused: width {w_ch} not in {KERNEL_WIDTHS}")
+    dev = x.device
+    _build.require(x, "x")
+    _build.require(x3, "x3", (1, w_ch, nv, nx, ny), device=dev)
+    t = {k: v.detach().contiguous() for k, v in _block_tensors(block, m1, m2).items()}
+    for k, v in t.items():
+        _build.require(v, f"block weight {k}", device=dev)
+    if t["a1"].shape != (w_ch, w_ch) or t["wr"].shape != (w_ch, w_ch, nv, m2, 2 * m1):
+        raise ValueError("block weights do not match the input's width, variables or modes")
+    tables = _dft_tables(nx, ny, m1, m2, dev)
+    k_fr = 2 * m1
+    scratch = [torch.empty((b, nv, w_ch, m2, k_fr), device=dev, dtype=torch.float32)
+               for _ in range(4)]
+    out = torch.empty_like(x)
+    lib = _build.library("fno_block")
+    fn = _build.declare(lib, "cppre_fno_block2d_fwd", [_P] * 23 + [_I] * 7 + [_F, _P])
+    ptrs = [x, x3, t["wr"], t["wi"], t["a1"], t["b1"], t["a2"], t["b2"], t["aw"], t["bw"],
+            *tables, *scratch, out]
+    with torch.cuda.device(dev):
+        rc = fn(*(p.data_ptr() for p in ptrs), b, w_ch, nv, nx, ny, m2, k_fr,
+                1.0 / (nx * ny), _build.stream_of(x))
+    _build.check(lib, rc, "fno_block2d_fused")
+    fno_block2d_fused.launches += 1
+    return out
+
+
+fno_block2d_fused.launches = 0
+
+
+# ---- K5 ---------------------------------------------------------------------
+
+def projection2d_plain(z, fc1, fc2):
+    """Plain PyTorch projection head fc2(gelu(fc1(z))); materialises the
+    [..., 256] hidden activation."""
+    return F.linear(F.gelu(F.linear(z, fc1.weight, fc1.bias)), fc2.weight, fc2.bias)
+
+
+def projection2d_fused(z, fc1, fc2):
+    """Projection head (kernel K5): z [B, V, Nx, Ny, W] -> [B, V, Nx, Ny, step],
+    fc1/fc2 the model's `fc1_time`/`fc2_time` (weights [Wp, W], [step, Wp]).
+    The hidden activation stays on chip."""
+    if z.ndim != 5:
+        raise ValueError(f"projection2d_fused: expected z [B, V, Nx, Ny, W], got {tuple(z.shape)}")
+    if not _build.on_cuda(z):
+        return projection2d_plain(z, fc1, fc2)
+    w_ch = z.shape[-1]
+    w_proj, step = fc1.weight.shape[0], fc2.weight.shape[0]
+    if w_ch not in KERNEL_WIDTHS or not 1 <= step <= KERNEL_MAX_STEP:
+        raise ValueError(f"projection2d_fused: width {w_ch} / step {step} not compiled "
+                         f"(widths {KERNEL_WIDTHS}, step <= {KERNEL_MAX_STEP})")
+    dev = z.device
+    _build.require(z, "z")
+    ws = [p.detach().contiguous() for p in (fc1.weight, fc1.bias, fc2.weight, fc2.bias)]
+    for name, p, shape in zip(("fc1.weight", "fc1.bias", "fc2.weight", "fc2.bias"), ws,
+                              ((w_proj, w_ch), (w_proj,), (step, w_proj), (step,))):
+        _build.require(p, name, shape, device=dev)
+    out = torch.empty(z.shape[:-1] + (step,), device=dev, dtype=torch.float32)
+    lib = _build.library("fno_block")
+    fn = _build.declare(lib, "cppre_projection2d_fwd", [_P] * 6 + [_LL, _I, _I, _I, _P])
+    with torch.cuda.device(dev):
+        rc = fn(z.data_ptr(), *(p.data_ptr() for p in ws), out.data_ptr(),
+                z.numel() // w_ch, w_ch, w_proj, step, _build.stream_of(z))
+    _build.check(lib, rc, "projection2d_fused")
+    projection2d_fused.launches += 1
+    return out
+
+
+projection2d_fused.launches = 0
