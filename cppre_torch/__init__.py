@@ -8,9 +8,12 @@ its tensor layouts: `[B, Nvar, Nx, Ny, T]` for the FNO and
 Every kernel lives beside a plain PyTorch version of the same math
 (`cppre_torch.ops.kernels`). A CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises. The CUDA sources are compiled with
-`nvcc` on first use (`cppre_torch.ops.kernels._build`).
+`nvcc` on first use (`cppre_torch.ops.kernels._build`). Entry points that
+make tensors of their own (`FNO2d`, `load_norms`, `NavierStokes2D`,
+`run_2d_cp`, `experiments.ns.run`) put them on the card unless the caller
+passes `device="cpu"`.
 
-Numerics: the rollout and CP path runs in full float32. Callers on the GPU
+Numerics: training, the rollout and the CP path run in full float32. Callers on the GPU
 keep `torch.backends.cuda.matmul.allow_tf32` and
 `torch.backends.cudnn.allow_tf32` False, as `chip_smoke.py` does.
 """

@@ -24,6 +24,12 @@ __device__ __forceinline__ float gelu_exact(float u) {
     return 0.5f * u * (1.0f + erff(u * 0.70710678118654752440f));
 }
 
+// Its derivative, Phi(u) + u * phi(u), as torch's gelu backward computes it.
+__device__ __forceinline__ float gelu_grad_exact(float u) {
+    const float cdf = 0.5f * (1.0f + erff(u * 0.70710678118654752440f));
+    return cdf + u * (0.39894228040143267794f * expf(-0.5f * u * u));
+}
+
 // Opt a kernel into more than the default 48 KB of dynamic shared memory.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {

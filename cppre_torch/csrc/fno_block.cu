@@ -18,6 +18,7 @@
 //      [Nx, K] tables for the K = 2*m1 kept frequencies (low then high).
 //   2. spectral_mix_kernel: the per-mode complex channel mix over W inputs,
 //      on [B, V, W, m2, K] (tiny).
+//   (Stages 1 and 2 live in fno_dft.cuh: the backward, K6, runs them too.)
 //   3. fno_block_out_kernel, one CUDA block per (b, v, x) row: the inverse x
 //      transform of that row's modes into shared memory, then one thread
 //      per pixel does the inverse y transform (Hermitian weights folded into
@@ -36,85 +37,9 @@
 // Every pixel's result depends only on its own sample, in a fixed order of
 // operations, so the output of a sample does not depend on the batch size.
 
-#include "common.cuh"
+#include "fno_dft.cuh"
 
 namespace {
-
-// ---- K4 stage 1: forward truncated DFT of one plane ------------------------
-// x [B, W, V, Nx, Ny]; z{r,i} [B, V, W, m2, K]; grid B*W*V, dynamic smem
-// (nx*ny + 2*nx*m2) floats.
-__global__ void dft_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cy,
-                               const float* __restrict__ sy, const float* __restrict__ cx,
-                               const float* __restrict__ sx, float* __restrict__ zr,
-                               float* __restrict__ zi, int W, int V, int nx, int ny, int m2,
-                               int K) {
-    extern __shared__ float smem[];
-    float* plane = smem;             // [nx, ny]
-    float* yr = plane + nx * ny;     // [nx, m2]
-    float* yi = yr + nx * m2;
-
-    const int p = blockIdx.x;        // (b*W + c)*V + v, the plane's index in x
-    const float* xp = x + (long long)p * nx * ny;
-    for (int i = threadIdx.x; i < nx * ny; i += blockDim.x) plane[i] = xp[i];
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < nx * m2; i += blockDim.x) {
-        const int row = i / m2, m = i % m2;
-        const float* r = plane + row * ny;
-        float ar = 0.0f, ai = 0.0f;
-        for (int y = 0; y < ny; ++y) {
-            const float val = r[y];
-            ar += val * __ldg(cy + y * m2 + m);
-            ai += val * __ldg(sy + y * m2 + m);
-        }
-        yr[i] = ar;
-        yi[i] = ai;
-    }
-    __syncthreads();
-
-    const int v = p % V, c = (p / V) % W, b = p / (V * W);
-    const long long base = (((long long)b * V + v) * W + c) * m2 * K;
-    for (int i = threadIdx.x; i < m2 * K; i += blockDim.x) {
-        const int m = i / K, k = i % K;
-        float ar = 0.0f, ai = 0.0f;
-        for (int row = 0; row < nx; ++row) {
-            const float re = yr[row * m2 + m], im = yi[row * m2 + m];
-            const float cv = __ldg(cx + row * K + k), sv = __ldg(sx + row * K + k);
-            ar += re * cv - im * sv;
-            ai += re * sv + im * cv;
-        }
-        zr[base + i] = ar;
-        zi[base + i] = ai;
-    }
-}
-
-// ---- K4 stage 2: per-mode complex channel mix -------------------------------
-// z{r,i} [B, V, W, m2, K]; w{r,i} [W_in, W_out, V, m2, K]; m{r,i} like z.
-__global__ void spectral_mix_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
-                                    const float* __restrict__ wr, const float* __restrict__ wi,
-                                    float* __restrict__ mr, float* __restrict__ mi, int B,
-                                    int W, int V, int mk) {
-    const long long total = (long long)B * V * W * mk;
-    for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-         idx += (long long)gridDim.x * blockDim.x) {
-        const int j = (int)(idx % mk);
-        const int o = (int)((idx / mk) % W);
-        const long long bv = idx / ((long long)mk * W);   // b*V + v
-        const int v = (int)(bv % V);
-        const float* zr_bv = zr + bv * W * mk + j;
-        const float* zi_bv = zi + bv * W * mk + j;
-        float ar = 0.0f, ai = 0.0f;
-        for (int i = 0; i < W; ++i) {
-            const float a = zr_bv[(long long)i * mk], b = zi_bv[(long long)i * mk];
-            const long long w = (((long long)i * W + o) * V + v) * mk + j;
-            const float c = __ldg(wr + w), d = __ldg(wi + w);
-            ar = ar + a * c - b * d;
-            ai = ai + a * d + b * c;
-        }
-        mr[idx] = ar;
-        mi[idx] = ai;
-    }
-}
 
 // ---- K4 stage 3: inverse DFT + channel MLP + bypass + bias + gelu ----------
 // One block per (b, v, x) row; threads along y. a1 [W, W] (mlp1, out x in),
@@ -159,19 +84,8 @@ __global__ void fno_block_out_kernel(const float* __restrict__ x, const float* _
         s_iyc[i] = iyc[i];
         s_iys[i] = iys[i];
     }
-    const float* mr_bv = mr + (long long)bv * W * m2 * K;
-    const float* mi_bv = mi + (long long)bv * W * m2 * K;
-    for (int i = threadIdx.x; i < W * m2; i += blockDim.x) {   // i = o*m2 + m
-        float vr = 0.0f, vi = 0.0f;
-        for (int k = 0; k < K; ++k) {
-            const float re = mr_bv[i * K + k], im = mi_bv[i * K + k];
-            const float c = __ldg(cxT + k * nx + row), s = __ldg(sxT + k * nx + row);
-            vr += re * c + im * s;
-            vi += im * c - re * s;
-        }
-        s_vr[i] = vr;
-        s_vi[i] = vi;
-    }
+    inverse_x_row(mr + (long long)bv * W * m2 * K, mi + (long long)bv * W * m2 * K, cxT, sxT,
+                  s_vr, s_vi, W, m2, K, nx, row);
     __syncthreads();
 
     const long long plane = (long long)nx * ny;
@@ -257,8 +171,6 @@ __global__ void projection_kernel(const float* __restrict__ z, const float* __re
     }
 }
 
-constexpr int kThreads = 256;
-
 template <int W>
 cudaError_t launch_block_out(const float* x, const float* x3, const float* mr, const float* mi,
                              const float* cxT, const float* sxT, const float* iyc,
@@ -312,21 +224,13 @@ CPPRE_EXPORT int cppre_fno_block2d_fwd(const void* x, const void* x3, const void
                                        int W, int V, int nx, int ny, int m2, int K,
                                        float inv_scale, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    const size_t smem1 = sizeof(float) * ((size_t)nx * ny + 2 * (size_t)nx * m2);
-    cudaError_t err = allow_smem(dft_fwd_kernel, smem1);
+    cudaError_t err = launch_dft_fwd((const float*)x, (const float*)cy, (const float*)sy,
+                                     (const float*)cx, (const float*)sx, (float*)zr, (float*)zi,
+                                     B, W, V, nx, ny, m2, K, s);
     if (err != cudaSuccess) return (int)err;
-    dft_fwd_kernel<<<(unsigned)B * W * V, kThreads, smem1, s>>>(
-        (const float*)x, (const float*)cy, (const float*)sy, (const float*)cx, (const float*)sx,
-        (float*)zr, (float*)zi, W, V, nx, ny, m2, K);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-    const long long total = (long long)B * V * W * m2 * K;
-    long long blocks = (total + kThreads - 1) / kThreads;
-    if (blocks > 65535) blocks = 65535;
-    spectral_mix_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-        (const float*)zr, (const float*)zi, (const float*)wr, (const float*)wi, (float*)mr,
-        (float*)mi, B, W, V, m2 * K);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    err = launch_spectral_mix((const float*)zr, (const float*)zi, (const float*)wr,
+                              (const float*)wi, (float*)mr, (float*)mi, B, W, V, m2 * K, s);
+    if (err != cudaSuccess) return (int)err;
 
 #define CPPRE_BLOCK_OUT(WW)                                                                      \
     launch_block_out<WW>((const float*)x, (const float*)x3, (const float*)mr, (const float*)mi, \

@@ -64,8 +64,9 @@ class CalibratedSurrogate:
     score : 'pre' (data-free, |residual(pred)|) or 'aer+pre'
         (|residual(truth) - residual(pred)|, needs truth at calibration).
     layout_fn : prediction -> residual-operator layout (default the 2-D permute).
-    fused : route rollouts through the hand-written FNO kernels where
-        supported (`models.fused.make_fused_apply`).
+    fused : route rollouts through the hand-written FNO kernels
+        (`models.fused.make_fused_apply`; on the card a shape they do not
+        take raises).
     """
 
     def __init__(self, model, residual_fn: Callable, *, step: int, T_out: int,
@@ -246,7 +247,7 @@ class CalibratedSurrogate:
         with open(prefix + "_meta.json") as f:
             meta = json.load(f)
         load_checkpoint(prefix, model)
-        in_norm, out_norm = load_norms(prefix)
+        in_norm, out_norm = load_norms(prefix, device=next(model.parameters()).device)
         srv = cls(model, residual_fn, step=meta["step"], T_out=meta["T_out"],
                   in_normalizer=in_norm, out_normalizer=out_norm, mode=meta["mode"],
                   score=meta["score"], layout_fn=layout_fn, fused=fused)

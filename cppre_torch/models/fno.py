@@ -21,7 +21,8 @@ convolutions, so cuDNN's TF32 default cannot reach them; on a GPU keep
 `torch.backends.cuda.matmul.allow_tf32` False for full float32.
 
 Random init draws from an explicit `torch.Generator` on the CPU, then
-moves to `device`, so a seed gives the same weights on every device.
+moves to `device`, so a seed gives the same weights on every device. The
+device defaults to the card (`"cuda"`); CPU callers pass `device="cpu"`.
 
 I/O contract: [BS, Nvar, Nx, Ny, T_in] -> [BS, Nvar, Nx, Ny, step].
 """
@@ -226,7 +227,7 @@ class FNO2d(nn.Module):
     """
 
     def __init__(self, T_in, step, modes1, modes2, num_vars, width_time, width_vars=0,
-                 spectral_impl="dft", *, device=None, generator=None):
+                 spectral_impl="dft", *, device="cuda", generator=None):
         super().__init__()
         self.T_in, self.step = T_in, step
         self.modes1, self.modes2 = modes1, modes2
@@ -239,8 +240,7 @@ class FNO2d(nn.Module):
                                                  spectral_impl, g))
         self.fc1_time = _Linear(width_time, 256, g)
         self.fc2_time = _Linear(256, step, g)
-        if device is not None:
-            self.to(device)
+        self.to(device)
 
     def blocks(self):
         return [getattr(self, f"f{i}") for i in range(6)]

@@ -1,50 +1,76 @@
-"""Inference-path FNO2d forward through the hand-written kernels.
+"""FNO2d through the hand-written kernels: inference and training.
 
-Port of the inference half of `cppre.models.fused`.
-`fno2d_forward_fused(model, x)` computes `model(x)` with each of the six
-Fourier blocks evaluated by kernel K4
-(`cppre_torch.ops.kernels.fno_block2d_fused`) and the projection head by
-kernel K5 (`projection2d_fused`). The lift, the skip adds, the transposes
-and the bias branch b(grid) stay plain torch, as they stay XLA in JAX.
+Port of `cppre.models.fused`.
+
+* `fno2d_forward_fused(model, x)` computes `model(x)` with each of the six
+  Fourier blocks evaluated by kernel K4 (`ops.kernels.fno_block2d_fused`)
+  and the projection head by kernel K5 (`projection2d_fused`). The lift,
+  the skip adds, the transposes and the bias branch b(grid) stay plain
+  torch, as they stay XLA in JAX. Inference only (no autograd).
+* `make_fused_train_apply(model)` returns a differentiable `apply_fn(x)`:
+  the same chain, each block a `torch.autograd.Function` with K4 forward
+  and K6 backward, the head one with K5 forward and K7 backward. The bias
+  branch runs differentiably outside the Function and receives dx3.
 
 The output of a sample does not depend on the batch it is evaluated in:
 K4 and K5 work per sample in a fixed order, the skip adds are elementwise,
 the bias branch always runs at batch 1, and the lift is written as a sum of
 T_in+2 broadcast products, so no library picks a batch-dependent algorithm
 for it. Conformal calibration relies on this: calibration and prediction
-samples rolled out at different batch sizes stay exchangeable.
-
-Inference only (no autograd); training keeps `model(x)`.
+samples rolled out at different batch sizes stay exchangeable. K6 and K7
+sum weight gradients across samples and have no such property (training
+needs none).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.kernels.fno_block import fno_block2d_fused, fno_kernel_supported, projection2d_fused
+from ..ops.kernels import _build
+from ..ops.kernels.fno_block import (
+    _unpack_spectral,
+    fno_block2d_bwd_fused,
+    fno_block2d_fused,
+    fno_kernel_limits,
+    projection2d_bwd_fused,
+    projection2d_fused,
+)
 from .fno import FNO2d, get_grid
 
-__all__ = ["fno2d_forward_fused", "fused_supported", "make_fused_apply"]
+__all__ = ["fno2d_forward_fused", "fused_supported", "make_fused_apply",
+           "make_fused_train_apply"]
 
 
-def fused_supported(model: FNO2d, x_shape) -> bool:
-    """Whether the kernels take this model at this input shape: a pure
-    function of the configuration and the shape (width, step, grid size
-    and modes; see `fno_kernel_supported`)."""
-    return fno_kernel_supported(model.width_time, model.step, x_shape[2], x_shape[3],
-                                model.modes1, model.modes2)
+def _limits(model: FNO2d, x_shape, backward: bool = False):
+    return fno_kernel_limits(model.width_time, model.step, x_shape[2], x_shape[3],
+                             model.modes1, model.modes2, backward)
+
+
+def fused_supported(model: FNO2d, x_shape, backward: bool = False) -> bool:
+    """Whether kernels K4 and K5 (with `backward`, also K6 and K7) take this
+    model at this input shape: a pure function of the configuration and the
+    shape (width, step, grid size and modes; see `fno_kernel_limits`)."""
+    return not _limits(model, x_shape, backward)
+
+
+def _require_kernels(model: FNO2d, x, backward: bool = False):
+    """On a CUDA tensor, raise ValueError naming every kernel limit that
+    this model and input shape break. A CPU tensor passes: the wrappers
+    take their plain versions there."""
+    broken = _limits(model, x.shape, backward) if _build.on_cuda(x) else []
+    if broken:
+        raise ValueError(f"the FNO kernels do not take this model at input shape "
+                         f"{tuple(x.shape)}: " + "; ".join(broken))
 
 
 def make_fused_apply(model: FNO2d):
     """`apply_fn(x)` over the fused kernels, the `apply_fn` that
-    `train.rollout.autoregressive_rollout` takes (inference only).
-    Unsupported shapes (`fused_supported`) take `model(x)` per call."""
+    `train.rollout.autoregressive_rollout` takes (inference only). On a
+    CUDA tensor a shape the kernels do not take raises ValueError."""
 
     def apply_fn(x):
-        if fused_supported(model, x.shape):
-            return fno2d_forward_fused(model, x)
-        with torch.no_grad():
-            return model(x)
+        _require_kernels(model, x)
+        return fno2d_forward_fused(model, x)
 
     return apply_fn
 
@@ -66,19 +92,17 @@ def _bias_branch(block, grid_c):
     return block.b(grid_c).contiguous()
 
 
-@torch.no_grad()
-def fno2d_forward_fused(model: FNO2d, x):
-    """[BS, Nvar, Nx, Ny, T_in] -> [BS, Nvar, Nx, Ny, step], the math of
-    `model(x)`, with the blocks and the head in kernels K4 and K5 (their
-    plain versions for a CPU tensor)."""
-    m1, m2 = model.modes1, model.modes2
+def _chain(model: FNO2d, x, block_fn, head_fn):
+    """The FNO2d forward with its six blocks as block_fn(block, z, x3) and
+    its head as head_fn(z [B, V, Nx, Ny, W]): lift, blocks with skip adds
+    every three, head."""
     grid = get_grid(x.shape, x.device).to(x.dtype)
     h = _lift(model.fc0_time, x, grid).permute(0, 4, 1, 2, 3).contiguous()
     grid_c = grid[:1].permute(0, 4, 1, 2, 3)
     f = model.blocks()
 
     def blk(i, z):
-        return fno_block2d_fused(z, f[i], _bias_branch(f[i], grid_c), m1, m2)
+        return block_fn(f[i], z, _bias_branch(f[i], grid_c))
 
     x0 = blk(0, h)
     z = blk(1, x0)
@@ -86,5 +110,86 @@ def fno2d_forward_fused(model: FNO2d, x):
     x1 = blk(3, z)
     z = blk(4, x1)
     z = blk(5, z) + x1
-    z = z.permute(0, 2, 3, 4, 1).contiguous()          # [B, V, Nx, Ny, W]
-    return projection2d_fused(z, model.fc1_time, model.fc2_time)
+    return head_fn(z.permute(0, 2, 3, 4, 1).contiguous())          # [B, V, Nx, Ny, W]
+
+
+@torch.no_grad()
+def fno2d_forward_fused(model: FNO2d, x):
+    """[BS, Nvar, Nx, Ny, T_in] -> [BS, Nvar, Nx, Ny, step], the math of
+    `model(x)`, with the blocks and the head in kernels K4 and K5 (their
+    plain versions for a CPU tensor)."""
+    m1, m2 = model.modes1, model.modes2
+    return _chain(model, x, lambda blk, z, x3: fno_block2d_fused(z, blk, x3, m1, m2),
+                  lambda z: projection2d_fused(z, model.fc1_time, model.fc2_time))
+
+
+# ---- training: K4/K5 forward, K6/K7 backward --------------------------------
+
+def _block_params(block):
+    """The block's parameters that K6 differentiates, in `_FusedBlock`'s
+    argument order (the bias branch `b` is differentiated outside)."""
+    return (block.conv.weights1, block.conv.weights2, block.mlp.mlp1.weight,
+            block.mlp.mlp1.bias, block.mlp.mlp2.weight, block.mlp.mlp2.bias, block.w.weight,
+            block.w.bias)
+
+
+class _FusedBlock(torch.autograd.Function):
+    """One Fourier block: forward K4, backward K6. The parameters are
+    inputs so that autograd hands them their gradients; both passes read
+    them from `block` itself, which the optimizer changes only after the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, z, x3, block, m1, m2, *params):
+        ctx.save_for_backward(z, x3)
+        ctx.block, ctx.modes = block, (m1, m2)
+        return fno_block2d_fused(z, block, x3, m1, m2)
+
+    @staticmethod
+    def backward(ctx, g):
+        z, x3 = ctx.saved_tensors
+        m1, m2 = ctx.modes
+        dx, dwr, dwi, da1, db1, da2, db2, daw, dbw, dx3 = fno_block2d_bwd_fused(
+            z, g.contiguous(), ctx.block, x3, m1, m2)
+        dw1, dw2 = _unpack_spectral(dwr, dwi, m1)
+        shape = ctx.block.w.weight.shape                        # [W, W, 1, 1, 1]
+        return (dx, dx3, None, None, None, dw1, dw2, da1.reshape(shape), db1,
+                da2.reshape(shape), db2, daw.reshape(shape), dbw)
+
+
+class _FusedProjection(torch.autograd.Function):
+    """The projection head: forward K5, backward K7."""
+
+    @staticmethod
+    def forward(ctx, z, fc1, fc2, *params):
+        ctx.save_for_backward(z)
+        ctx.fcs = (fc1, fc2)
+        return projection2d_fused(z, fc1, fc2)
+
+    @staticmethod
+    def backward(ctx, g):
+        (z,) = ctx.saved_tensors
+        dz, da1, db1, da2, db2 = projection2d_bwd_fused(z, g.contiguous(), *ctx.fcs)
+        return dz, None, None, da1, db1, da2, db2
+
+
+def make_fused_train_apply(model: FNO2d):
+    """A differentiable `apply_fn(x)` over the kernels, for `train.loops`:
+    every block forward (including the recompute of a checkpointed step)
+    runs K4 and the head K5, the backward K6 and K7 (their plain versions
+    on a CPU tensor). On a CUDA tensor a shape the kernels do not take
+    raises ValueError."""
+    m1, m2 = model.modes1, model.modes2
+    fc1, fc2 = model.fc1_time, model.fc2_time
+
+    def block_fn(blk, z, x3):
+        return _FusedBlock.apply(z, x3, blk, m1, m2, *_block_params(blk))
+
+    def head_fn(z):
+        return _FusedProjection.apply(z, fc1, fc2, fc1.weight, fc1.bias, fc2.weight, fc2.bias)
+
+    def apply_fn(x):
+        _require_kernels(model, x, backward=True)
+        return _chain(model, x, block_fn, head_fn)
+
+    return apply_fn

@@ -5,6 +5,8 @@
 | K2 | `ns_momentum_residual_fused` | `ns_momentum_residual_plain` | `stencil_kernels._batched_residual_fused` |
 | K4 | `fno_block2d_fused` | `fno_block2d_plain` | `fno_block.fno_block2d_fused` |
 | K5 | `projection2d_fused` | `projection2d_plain` | `fno_block.projection2d_fused` |
+| K6 | `fno_block2d_bwd_fused` | `fno_block2d_bwd_plain` | `fno_block.fno_block2d_bwd_fused` |
+| K7 | `projection2d_bwd_fused` | `projection2d_bwd_plain` | `fno_block.projection2d_bwd_fused` |
 
 (replaced functions under `cppre/ops/pallas/`). A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises. Every wrapper counts
@@ -13,9 +15,13 @@ its kernel launches in `.launches`; `launch_counts()` reads them all and
 """
 
 from .fno_block import (
+    fno_block2d_bwd_fused,
+    fno_block2d_bwd_plain,
     fno_block2d_fused,
     fno_block2d_plain,
-    fno_kernel_supported,
+    fno_kernel_limits,
+    projection2d_bwd_fused,
+    projection2d_bwd_plain,
     projection2d_fused,
     projection2d_plain,
 )
@@ -33,6 +39,8 @@ KERNELS = {
     "K2": ns_momentum_residual_fused,
     "K4": fno_block2d_fused,
     "K5": projection2d_fused,
+    "K6": fno_block2d_bwd_fused,
+    "K7": projection2d_bwd_fused,
 }
 
 
@@ -48,9 +56,11 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNELS",
+    "fno_block2d_bwd_fused",
+    "fno_block2d_bwd_plain",
     "fno_block2d_fused",
     "fno_block2d_plain",
-    "fno_kernel_supported",
+    "fno_kernel_limits",
     "launch_counts",
     "ns_joint_cp_diff_stats",
     "ns_joint_cp_diff_stats_plain",
@@ -58,6 +68,8 @@ __all__ = [
     "ns_joint_cp_scores_plain",
     "ns_momentum_residual_fused",
     "ns_momentum_residual_plain",
+    "projection2d_bwd_fused",
+    "projection2d_bwd_plain",
     "projection2d_fused",
     "projection2d_plain",
     "reset_launch_counts",

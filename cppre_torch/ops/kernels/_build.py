@@ -7,7 +7,7 @@ ignores), with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o lib<name>_<hash>.so <name>.cu
 
-The hash covers the source, the shared header and the flags, so an edited
+The hash covers the source, the shared headers and the flags, so an edited
 source rebuilds and an unchanged one is reused. `build()` starts one `nvcc`
 per missing library, all at once, and waits for them. Nothing is built when
 a module is imported: the first kernel launch builds what it needs. There
@@ -29,7 +29,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "library", "ptxas_report", "declare"
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "cppre_torch"
-SOURCES = ("stencil_kernels", "fno_block")
+SOURCES = ("stencil_kernels", "fno_block", "fno_block_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,7 +50,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"

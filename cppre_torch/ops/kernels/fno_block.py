@@ -1,7 +1,8 @@
-"""FNO2d inference kernels: the Fourier block (K4) and the projection head (K5).
+"""FNO2d kernels: the Fourier block (K4) and the projection head (K5), and
+their backward passes (K6, K7).
 
-Port of `cppre/ops/pallas/fno_block.py` (forward half). Each kernel has a
-plain PyTorch version of the same math beside it:
+Port of `cppre/ops/pallas/fno_block.py`. Each kernel has a plain PyTorch
+version of the same math beside it:
 
 * `fno_block2d_fused` (CUDA `csrc/fno_block.cu`) / `fno_block2d_plain`:
   one Fourier block, gelu(mlp(spectral(x)) + w(x) + x3), with the spectral
@@ -9,11 +10,19 @@ plain PyTorch version of the same math beside it:
   float32 -> same shape; x3 the batch-constant bias branch [1, W, V, Nx, Ny].
 * `projection2d_fused` / `projection2d_plain`: fc1 -> exact gelu -> fc2 per
   pixel, z [B, V, Nx, Ny, W] -> [B, V, Nx, Ny, step].
+* `fno_block2d_bwd_fused` (CUDA `csrc/fno_block_bwd.cu`) /
+  `fno_block2d_bwd_plain`: the block's backward from its input x and the
+  output cotangent g: dx, the spectral grads in the repacked
+  [in, out, V, m2, K] layout, the channel-map grads and dx3, the weight
+  grads summed over batch and variables.
+* `projection2d_bwd_fused` / `projection2d_bwd_plain`: the head's backward,
+  dz and the fc1/fc2 grads summed over every pixel.
 
 Weights come from the port's modules (`cppre_torch.models.fno`): a block is
 an `_FNOBlock2d`, the head two `_Linear`s. The kernels run at the true Nx
 and Ny; the JAX package's x padding to 8 rows and flattened head output
-were TPU layout needs and are gone.
+were TPU layout needs and are gone. Gradients of a [out, in] channel map
+come back in that layout (the port's), biases as [n].
 
 Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. Each kernel wrapper counts its launches in `.launches`
@@ -34,14 +43,18 @@ from . import _build
 __all__ = [
     "fno_block2d_fused",
     "fno_block2d_plain",
+    "fno_block2d_bwd_fused",
+    "fno_block2d_bwd_plain",
     "projection2d_fused",
     "projection2d_plain",
-    "fno_kernel_supported",
+    "projection2d_bwd_fused",
+    "projection2d_bwd_plain",
+    "fno_kernel_limits",
 ]
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
-# What the CUDA kernels are compiled for (csrc/fno_block.cu): the channel
+# What the CUDA kernels are compiled for (csrc/fno_block*.cu): the channel
 # widths of the register-resident stages, the head's widest output step, and
 # the shared memory of one block.
 KERNEL_WIDTHS = (4, 8, 16, 32)
@@ -49,13 +62,41 @@ KERNEL_MAX_STEP = 8
 _SMEM_LIMIT = 227 * 1024
 
 
-def fno_kernel_supported(width: int, step: int, nx: int, ny: int, m1: int, m2: int) -> bool:
-    """Whether the K4/K5 kernels take this configuration: a compiled width,
-    step <= 8, the forward-DFT stage's plane within shared memory, and the
-    modes within the one-sided spectrum (2*m1 <= Nx, m2 <= Ny//2+1)."""
-    smem = 4 * (nx * ny + 2 * nx * m2)
-    return (width in KERNEL_WIDTHS and 1 <= step <= KERNEL_MAX_STEP and smem <= _SMEM_LIMIT
-            and 2 * m1 <= nx and m2 <= ny // 2 + 1)
+def _row_smem(width: int, ny: int, m2: int, backward: bool) -> int:
+    """Shared memory (bytes) of the per-row stage of K4 (csrc/fno_block.cu,
+    launch_block_out) or, with `backward`, of K6, the largest of its row
+    stages (csrc/fno_block_bwd.cu, launch_bwd_row)."""
+    fwd = 2 * width * m2 + 3 * width * width + 3 * width + 2 * m2 * ny
+    if not backward:
+        return 4 * fwd
+    threads = ((ny + 31) // 32) * 32 if ny < 128 else 128
+    n_part = 3 * width * width + 2 * width
+    return 4 * (fwd + n_part + 5 * width * (threads + 1))
+
+
+def fno_kernel_limits(width: int, step: int, nx: int, ny: int, m1: int, m2: int,
+                      backward: bool = False) -> list[str]:
+    """The limits of kernels K4 and K5 (with `backward`, also K6 and K7)
+    that this configuration breaks, in words; empty when they take it. The
+    limits: a compiled width, 1 <= step <= 8, the modes within the one-sided
+    spectrum (2*m1 <= Nx, m2 <= Ny//2+1), and the forward-DFT stage's plane
+    and the per-row stage (K4's or K6's) within one block's shared memory."""
+    broken = []
+    if width not in KERNEL_WIDTHS:
+        broken.append(f"width {width} is not one of the compiled widths {KERNEL_WIDTHS}")
+    if not 1 <= step <= KERNEL_MAX_STEP:
+        broken.append(f"step {step} is outside 1..{KERNEL_MAX_STEP}")
+    if not (2 * m1 <= nx and m2 <= ny // 2 + 1):
+        broken.append(f"modes ({m1}, {m2}) exceed the {nx}x{ny} grid's one-sided spectrum")
+    plane = 4 * (nx * ny + 2 * nx * m2)
+    if plane > _SMEM_LIMIT:
+        broken.append(f"the forward-DFT stage needs {plane} B of shared memory for a {nx}x{ny} "
+                      f"plane, above {_SMEM_LIMIT} B")
+    row = _row_smem(width, ny, m2, backward)
+    if row > _SMEM_LIMIT:
+        broken.append(f"{'K6' if backward else 'K4'}'s row stage needs {row} B of shared "
+                      f"memory at width {width}, Ny {ny}, above {_SMEM_LIMIT} B")
+    return broken
 
 
 @functools.lru_cache(maxsize=16)
@@ -79,12 +120,31 @@ def _dft_tables(nx: int, ny: int, m1: int, m2: int, device=None):
                  for t in (cy, sy, cx, sx, cx.T, sx.T, iyc, iys))
 
 
+@functools.lru_cache(maxsize=16)
+def _adjoint_tables(nx: int, ny: int, m1: int, m2: int, device=None):
+    """The tables of the backward (K6): the transposed weighted inverse-y
+    tables (iyc^T, iys^T) [Ny, m2], the adjoint of the inverse y transform,
+    and the transposed forward-y tables (cy^T, sy^T) [m2, Ny], the adjoint
+    of the forward one (`_dft_tables` copies, as the Pallas kernel takes
+    them)."""
+    cy, sy, _, _, _, _, iyc, iys = _dft_tables(nx, ny, m1, m2, device)
+    return tuple(t.T.contiguous() for t in (iyc, iys, cy, sy))
+
+
 def _repack_spectral(conv, m1: int, m2: int):
     """The block's two complex [in, out, V, m1, m2] weights -> real and
     imaginary [in, out, V, m2, K] (K = 2*m1, low modes then high), the
     kernel's frequency order."""
     w = torch.cat([conv.weights1, conv.weights2], dim=3).transpose(3, 4)
     return w.real.contiguous(), w.imag.contiguous()
+
+
+def _unpack_spectral(dwr, dwi, m1: int):
+    """The inverse of `_repack_spectral` for gradients: real and imaginary
+    [in, out, V, m2, K] -> the two complex [in, out, V, m1, m2] gradients
+    (d/dRe + i d/dIm, torch's convention for a real loss)."""
+    d = torch.complex(dwr, dwi).transpose(3, 4)
+    return d[:, :, :, :m1].contiguous(), d[:, :, :, m1:].contiguous()
 
 
 def _mat(lin):
@@ -112,9 +172,13 @@ def fno_block2d_plain(x, block, x3, m1: int, m2: int):
     per-mode complex channel mix, the inverse x then y transform, the
     channel MLP with exact gelu, the 1x1 bypass, the bias branch x3 and
     the final gelu."""
-    b, w_ch, nv, nx, ny = x.shape
+    return _block_math(x, x3, _block_tensors(block, m1, m2), m1, m2)
+
+
+def _block_math(x, x3, t, m1: int, m2: int):
+    """`fno_block2d_plain` on the block's tensors `t` (`_block_tensors`)."""
+    nx, ny = x.shape[-2], x.shape[-1]
     cy, sy, cx, sx, cxT, sxT, iyc, iys = _dft_tables(nx, ny, m1, m2, x.device)
-    t = _block_tensors(block, m1, m2)
     yr, yi = x @ cy, x @ sy                                          # [B, W, V, Nx, m2]
     zr = (torch.einsum("bcvxm,xk->bcvmk", yr, cx) - torch.einsum("bcvxm,xk->bcvmk", yi, sx))
     zi = (torch.einsum("bcvxm,xk->bcvmk", yr, sx) + torch.einsum("bcvxm,xk->bcvmk", yi, cx))
@@ -136,7 +200,7 @@ def fno_block2d_fused(x, block, x3, m1: int, m2: int):
     passes it precomputed as x3 [1, W, V, Nx, Ny]). Returns [B, W, V, Nx, Ny].
 
     Needs 2*m1 <= Nx and m2 <= Ny//2+1; on CUDA also a width the kernel is
-    compiled for (`fno_kernel_supported`)."""
+    compiled for (`fno_kernel_limits`)."""
     if x.ndim != 5:
         raise ValueError(f"fno_block2d_fused: expected x [B, W, V, Nx, Ny], got {tuple(x.shape)}")
     b, w_ch, nv, nx, ny = x.shape
@@ -172,6 +236,82 @@ def fno_block2d_fused(x, block, x3, m1: int, m2: int):
 
 
 fno_block2d_fused.launches = 0
+
+
+# ---- K6 ---------------------------------------------------------------------
+
+_GRAD_ORDER = ("wr", "wi", "a1", "b1", "a2", "b2", "aw", "bw")
+
+
+def fno_block2d_bwd_plain(x, g, block, x3, m1: int, m2: int):
+    """Plain PyTorch backward of the Fourier block: autograd of
+    `fno_block2d_plain` with respect to x, the repacked spectral weights,
+    the six channel-map tensors and x3, for the output cotangent g. The
+    same tuple and layout as `fno_block2d_bwd_fused`."""
+    t = {k: v.detach().requires_grad_() for k, v in _block_tensors(block, m1, m2).items()}
+    xs, x3s = x.detach().requires_grad_(), x3.detach().requires_grad_()
+    with torch.enable_grad():
+        out = _block_math(xs, x3s, t, m1, m2)
+        return torch.autograd.grad(out, [xs, *(t[k] for k in _GRAD_ORDER), x3s], g)
+
+
+def fno_block2d_bwd_fused(x, g, block, x3, m1: int, m2: int):
+    """Backward of one Fourier block (kernel K6). x is the block's input and
+    g the cotangent of its output, both [B, W, V, Nx, Ny] float32; block
+    and x3 as for `fno_block2d_fused`. Returns
+
+        (dx, dwr, dwi, da1, db1, da2, db2, daw, dbw, dx3)
+
+    dx like x; dwr/dwi [in, out, V, m2, K] (`_repack_spectral`'s layout;
+    `_unpack_spectral` maps them back); da1, da2, daw [out, in]; db1, db2,
+    dbw [W]; dx3 [1, W, V, Nx, Ny], summed over the batch. On CUDA every sum
+    is taken in a fixed order: two calls give equal bits."""
+    if x.ndim != 5 or g.shape != x.shape:
+        raise ValueError(f"fno_block2d_bwd_fused: expected x and g [B, W, V, Nx, Ny], got "
+                         f"{tuple(x.shape)} and {tuple(g.shape)}")
+    b, w_ch, nv, nx, ny = x.shape
+    if not (2 * m1 <= nx and m2 <= ny // 2 + 1):
+        raise ValueError(f"modes ({m1}, {m2}) exceed the {nx}x{ny} grid's one-sided spectrum")
+    if not _build.on_cuda(x):
+        return fno_block2d_bwd_plain(x, g, block, x3, m1, m2)
+    if w_ch not in KERNEL_WIDTHS:
+        raise ValueError(f"fno_block2d_bwd_fused: width {w_ch} not in {KERNEL_WIDTHS}")
+    dev = x.device
+    _build.require(x, "x")
+    _build.require(g, "g", x.shape, device=dev)
+    _build.require(x3, "x3", (1, w_ch, nv, nx, ny), device=dev)
+    t = {k: v.detach().contiguous() for k, v in _block_tensors(block, m1, m2).items()}
+    for k, v in t.items():
+        _build.require(v, f"block weight {k}", device=dev)
+    if t["a1"].shape != (w_ch, w_ch) or t["wr"].shape != (w_ch, w_ch, nv, m2, 2 * m1):
+        raise ValueError("block weights do not match the input's width, variables or modes")
+    k_fr = 2 * m1
+    n_part = 3 * w_ch * w_ch + 2 * w_ch
+    f32 = dict(device=dev, dtype=torch.float32)
+    work = torch.empty(8 * b * nv * w_ch * m2 * k_fr, **f32)
+    gs, dspec, dx = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    partial = torch.empty((b * nv * nx, n_part), **f32)
+    dwr = torch.empty((w_ch, w_ch, nv, m2, k_fr), **f32)
+    dwi = torch.empty_like(dwr)
+    red = torch.empty(n_part, **f32)
+    dx3 = torch.empty((1, w_ch, nv, nx, ny), **f32)
+    lib = _build.library("fno_block_bwd")
+    fn = _build.declare(lib, "cppre_fno_block2d_bwd", [_P] * 32 + [_I] * 7 + [_F, _P])
+    ptrs = [x, g, x3, t["wr"], t["wi"], t["a1"], t["b1"], t["a2"], t["b2"], t["aw"], t["bw"],
+            *_dft_tables(nx, ny, m1, m2, dev), *_adjoint_tables(nx, ny, m1, m2, dev),
+            work, gs, dspec, partial, dx, dwr, dwi, red, dx3]
+    with torch.cuda.device(dev):
+        rc = fn(*(p.data_ptr() for p in ptrs), b, w_ch, nv, nx, ny, m2, k_fr,
+                1.0 / (nx * ny), _build.stream_of(x))
+    _build.check(lib, rc, "fno_block2d_bwd_fused")
+    fno_block2d_bwd_fused.launches += 1
+    ww = w_ch * w_ch
+    da1, da2, daw = (red[i * ww:(i + 1) * ww].view(w_ch, w_ch) for i in range(3))
+    db1, db2 = red[3 * ww:3 * ww + w_ch], red[3 * ww + w_ch:]
+    return dx, dwr, dwi, da1, db1, da2, db2, daw, db2.clone(), dx3
+
+
+fno_block2d_bwd_fused.launches = 0
 
 
 # ---- K5 ---------------------------------------------------------------------
@@ -213,3 +353,61 @@ def projection2d_fused(z, fc1, fc2):
 
 
 projection2d_fused.launches = 0
+
+
+# ---- K7 ---------------------------------------------------------------------
+
+def projection2d_bwd_plain(z, g, fc1, fc2):
+    """Plain PyTorch backward of the projection head: autograd of
+    `projection2d_plain`. Returns (dz, da1, db1, da2, db2) as
+    `projection2d_bwd_fused` does."""
+    ws = [p.detach().requires_grad_() for p in (fc1.weight, fc1.bias, fc2.weight, fc2.bias)]
+    zs = z.detach().requires_grad_()
+    with torch.enable_grad():
+        out = F.linear(F.gelu(F.linear(zs, ws[0], ws[1])), ws[2], ws[3])
+        return torch.autograd.grad(out, [zs, *ws], g)
+
+
+def projection2d_bwd_fused(z, g, fc1, fc2):
+    """Backward of the projection head (kernel K7): z [B, V, Nx, Ny, W] the
+    head's input, g [B, V, Nx, Ny, step] the cotangent of its output.
+    Returns (dz, da1 [Wp, W], db1 [Wp], da2 [step, Wp], db2 [step]), the
+    weight grads summed over every pixel in a fixed order. The [.., Wp]
+    hidden activation stays on chip."""
+    if z.ndim != 5:
+        raise ValueError(f"projection2d_bwd_fused: expected z [B, V, Nx, Ny, W], "
+                         f"got {tuple(z.shape)}")
+    if not _build.on_cuda(z):
+        return projection2d_bwd_plain(z, g, fc1, fc2)
+    w_ch = z.shape[-1]
+    w_proj, step = fc1.weight.shape[0], fc2.weight.shape[0]
+    if w_ch not in KERNEL_WIDTHS or not 1 <= step <= KERNEL_MAX_STEP or not 1 <= w_proj <= 1024:
+        raise ValueError(f"projection2d_bwd_fused: width {w_ch} / step {step} / hidden "
+                         f"{w_proj} not compiled (widths {KERNEL_WIDTHS}, "
+                         f"step <= {KERNEL_MAX_STEP}, hidden <= 1024)")
+    dev = z.device
+    _build.require(z, "z")
+    _build.require(g, "g", z.shape[:-1] + (step,), device=dev)
+    a1, b1, a2 = (p.detach().contiguous() for p in (fc1.weight, fc1.bias, fc2.weight))
+    for name, p, shape in zip(("fc1.weight", "fc1.bias", "fc2.weight"), (a1, b1, a2),
+                              ((w_proj, w_ch), (w_proj,), (step, w_proj))):
+        _build.require(p, name, shape, device=dev)
+    lib = _build.library("fno_block_bwd")
+    n_blocks = _build.declare(lib, "cppre_projection2d_bwd_blocks", [])()
+    n_part = w_proj * w_ch + w_proj + step * w_proj + step
+    f32 = dict(device=dev, dtype=torch.float32)
+    dz = torch.empty_like(z)
+    partial = torch.empty((n_blocks, n_part), **f32)
+    red = torch.empty(n_part, **f32)
+    fn = _build.declare(lib, "cppre_projection2d_bwd", [_P] * 8 + [_LL, _I, _I, _I, _P])
+    with torch.cuda.device(dev):
+        rc = fn(*(p.data_ptr() for p in (z, g, a1, b1, a2, dz, partial, red)),
+                z.numel() // w_ch, w_ch, w_proj, step, _build.stream_of(z))
+    _build.check(lib, rc, "projection2d_bwd_fused")
+    projection2d_bwd_fused.launches += 1
+    o1, o2 = w_proj * w_ch, w_proj * w_ch + w_proj
+    return (dz, red[:o1].view(w_proj, w_ch), red[o1:o2],
+            red[o2:o2 + step * w_proj].view(step, w_proj), red[o2 + step * w_proj:])
+
+
+projection2d_bwd_fused.launches = 0

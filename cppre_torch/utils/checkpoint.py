@@ -52,8 +52,9 @@ def save_norms(path: str, in_normalizer, out_normalizer) -> str:
     return path
 
 
-def load_norms(path: str, device=None):
-    """Returns (in_normalizer, out_normalizer) rebuilt from the npz."""
+def load_norms(path: str, device="cuda"):
+    """Returns (in_normalizer, out_normalizer) rebuilt from the npz, their
+    coefficients on `device` (the card unless the caller asks for the CPU)."""
     from ..train.normalizers import _AffineNormalizer
 
     if not path.endswith(".npz"):

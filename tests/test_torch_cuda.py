@@ -10,15 +10,20 @@ runs on a machine without them:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerances (float32, another summation order than the plain version):
-1e-5 of max|plain| for the stencil kernels, 1e-4 for the FNO kernels.
+1e-5 of max|plain| for the stencil kernels, 1e-4 for the FNO kernels'
+outputs and for dx/dz of their backward passes; 1e-3 for the backward
+weight gradients, which are sums over every pixel of the batch taken in
+another order than autograd's.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from cppre_torch.models import FNO2d, fno2d_forward_fused
+from cppre_torch.models import FNO2d, fno2d_forward_fused, make_fused_train_apply
 from cppre_torch.ops import kernels as K
+from cppre_torch.train.loops import make_optimizer, make_train_step
+from cppre_torch.train.losses import lp_loss
 
 pytestmark = pytest.mark.cuda
 ARGS = (0.01, 0.02, 0.03, 1e-3)
@@ -40,6 +45,8 @@ def _randn(shape, seed, dev):
 
 def _close(got, ref, rel):
     assert got.shape == ref.shape and got.dtype == ref.dtype
+    if got.is_complex():
+        got, ref = torch.view_as_real(got), torch.view_as_real(ref)
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= rel * ref.float().abs().max().item(), err
 
@@ -110,3 +117,82 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         K.ns_momentum_residual_fused(f.transpose(3, 4), *ARGS)   # not contiguous
     with pytest.raises(TypeError):
         K.ns_momentum_residual_fused(f.double(), *ARGS)
+
+
+def test_fused_applies_refuse_shapes_the_kernels_do_not_take(dev):
+    """On the card there is no plain fallback: the width-12 model raises,
+    and so does training where only K6's row stage is too large."""
+    from cppre_torch.models import make_fused_apply
+
+    narrow = FNO2d(1, 1, 2, 2, 1, 12, device=dev)
+    with pytest.raises(ValueError, match="width 12"):
+        make_fused_apply(narrow)(_randn((1, 1, 8, 8, 1), 16, dev))
+    wide = FNO2d(1, 1, 8, 8, 1, 32, device=dev)
+    x = _randn((1, 1, 16, 2000, 1), 17, dev)
+    with pytest.raises(ValueError, match="K6's row stage"):
+        make_fused_train_apply(wide)(x)
+    assert make_fused_apply(wide)(x).shape == (1, 1, 16, 2000, 1)
+
+
+def test_fno2d_defaults_to_the_card(dev):
+    model = FNO2d(1, 1, 2, 2, 1, 4)
+    assert all(p.device.type == "cuda" for p in model.parameters())
+
+
+def _grads_close(got, ref, what):
+    """dx/dz (the first output) at 1e-4 of max|plain|, weight grads at 1e-3."""
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.shape == r.shape, (what, i)
+        _close(g, r, 1e-4 if i == 0 else 1e-3)
+
+
+@pytest.mark.parametrize("width,nx,ny,m1,m2", [(4, 12, 10, 3, 3), (16, 20, 150, 5, 8),
+                                               (8, 16, 8, 4, 5), (32, 9, 7, 2, 4)])
+def test_fno_block_bwd_kernel(dev, width, nx, ny, m1, m2):
+    model = FNO2d(1, 1, m1, m2, 2, width, device=dev,
+                  generator=torch.Generator().manual_seed(width + 1))
+    x = _randn((3, width, 2, nx, ny), 9, dev)
+    g = _randn(x.shape, 10, dev)
+    x3 = _randn((1, width, 2, nx, ny), 11, dev)
+    before = K.fno_block2d_bwd_fused.launches
+    got = K.fno_block2d_bwd_fused(x, g, model.f3, x3, m1, m2)
+    assert K.fno_block2d_bwd_fused.launches == before + 1
+    _grads_close(got, K.fno_block2d_bwd_plain(x, g, model.f3, x3, m1, m2), "K6")
+    # bit-stable: every cross-block sum has one fixed order
+    again = K.fno_block2d_bwd_fused(x, g, model.f3, x3, m1, m2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("width,step", [(4, 1), (16, 3), (32, 8)])
+def test_projection_bwd_kernel(dev, width, step):
+    model = FNO2d(1, step, 2, 2, 2, width, device=dev,
+                  generator=torch.Generator().manual_seed(step + 5))
+    z = _randn((3, 2, 7, 9, width), 12, dev)
+    g = _randn(z.shape[:-1] + (step,), 13, dev)
+    got = K.projection2d_bwd_fused(z, g, model.fc1_time, model.fc2_time)
+    _grads_close(got, K.projection2d_bwd_plain(z, g, model.fc1_time, model.fc2_time), "K7")
+    again = K.projection2d_bwd_fused(z, g, model.fc1_time, model.fc2_time)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_fused_train_step_matches_plain_autograd(dev):
+    """One train step through K4-K7 and through model autograd, from the
+    same weights and batch: the loss and every gradient agree; the
+    counters show K4 twice per block and step (forward and recompute)."""
+    a = FNO2d(1, 1, 4, 4, 3, 16, device=dev, generator=torch.Generator().manual_seed(3))
+    b = FNO2d(1, 1, 4, 4, 3, 16, device=dev, generator=torch.Generator().manual_seed(3))
+    xx = _randn((2, 3, 24, 18, 1), 14, dev)
+    yy = _randn((2, 3, 24, 18, 3), 15, dev)
+    losses, grads = [], []
+    K.reset_launch_counts()
+    for model, fn in ((a, make_fused_train_apply(a)), (b, b)):
+        opt = make_optimizer(model.parameters(), 5e-3)
+        step = make_train_step(fn, opt, 1, 3, lp_loss)
+        opt.zero_grad()
+        loss, full = step(xx, yy)
+        losses.append(float(loss))
+        grads.append([p.grad for p in model.parameters()])
+    assert K.launch_counts() == {"K1": 0, "K2": 0, "K4": 36, "K5": 6, "K6": 18, "K7": 3}
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+    for ga, gb in zip(*grads):
+        _close(ga, gb, 1e-3)

@@ -45,7 +45,7 @@ def _pair(modes=(3, 3), nx=12, ny=10, spectral_impl="dft", seed=0, t_in=1, step=
     jm = JFNO2d(T_in=t_in, step=step, modes1=modes[0], modes2=modes[1], num_vars=NV,
                 width_time=WIDTH, spectral_impl=spectral_impl)
     make = lambda s: FNO2d(t_in, step, modes[0], modes[1], NV, WIDTH, spectral_impl=spectral_impl,
-                           generator=torch.Generator().manual_seed(s))
+                           device="cpu", generator=torch.Generator().manual_seed(s))
     template = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
                               jnp.zeros((1, NV, nx, ny, t_in), jnp.float32))
     params = jax.device_get(fno_params_from_torch(make(seed).state_dict(), template))
@@ -80,7 +80,7 @@ def test_weights_round_trip_bit_for_bit():
     -> flax gives every weight back exactly; the port's names are the
     reference's."""
     jm, params, tm = _pair(seed=3)
-    src = FNO2d(1, 1, 3, 3, NV, WIDTH, generator=torch.Generator().manual_seed(3))
+    src = FNO2d(1, 1, 3, 3, NV, WIDTH, device="cpu", generator=torch.Generator().manual_seed(3))
     for k, v in src.state_dict().items():
         assert torch.equal(tm.state_dict()[k], v), k
     back = fno_params_from_torch(tm.state_dict(), params)
@@ -146,19 +146,37 @@ def test_batch_shape_invariance():
 
 
 def test_fused_supported_is_a_shape_rule():
-    flagship = FNO2d(1, 1, 8, 8, 3, 16)
+    flagship = FNO2d(1, 1, 8, 8, 3, 16, device="cpu")
     assert fused_supported(flagship, (100, 3, 100, 100, 1))
     assert not fused_supported(flagship, (4, 3, 12, 100, 1))     # 2*m1 > Nx
     assert not fused_supported(flagship, (4, 3, 100, 12, 1))     # m2 > Ny//2+1
-    assert not fused_supported(FNO2d(1, 1, 3, 3, 3, 12), (4, 3, 12, 10, 1))  # width 12
-    assert not fused_supported(FNO2d(1, 9, 3, 3, 3, 4), (4, 3, 12, 10, 1))   # step 9
+    width12 = FNO2d(1, 1, 3, 3, 3, 12, device="cpu")
+    step9 = FNO2d(1, 9, 3, 3, 3, 4, device="cpu")
+    assert not fused_supported(width12, (4, 3, 12, 10, 1))
+    assert not fused_supported(step9, (4, 3, 12, 10, 1))
     assert not fused_supported(flagship, (1, 3, 512, 512, 1))    # plane > shared memory
 
 
+def test_kernel_limits_name_what_they_break():
+    assert K.fno_kernel_limits(16, 1, 100, 100, 8, 8, backward=True) == []
+    broken = K.fno_kernel_limits(12, 9, 512, 512, 300, 300)
+    assert len(broken) == 5
+    for part, words in zip(broken, ("width 12", "step 9", "modes (300, 300)", "512x512 plane",
+                                    "K4's row stage")):
+        assert words in part, (words, part)
+    # K6's per-row stage outgrows shared memory before K4's plane does: at
+    # width 32 on a 16x2000 grid the forward kernels take the model and the
+    # backward ones do not
+    wide = FNO2d(1, 1, 8, 8, 3, 32, device="cpu")
+    assert fused_supported(wide, (2, 3, 16, 2000, 1))
+    assert not fused_supported(wide, (2, 3, 16, 2000, 1), backward=True)
+    assert "K6's row stage" in K.fno_kernel_limits(32, 1, 16, 2000, 8, 8, backward=True)[0]
+
+
 def test_generator_init_and_checkpoint_round_trip(tmp_path):
-    a = FNO2d(1, 1, 3, 3, NV, WIDTH, generator=torch.Generator().manual_seed(11))
-    b = FNO2d(1, 1, 3, 3, NV, WIDTH, generator=torch.Generator().manual_seed(11))
-    c = FNO2d(1, 1, 3, 3, NV, WIDTH, generator=torch.Generator().manual_seed(12))
+    a = FNO2d(1, 1, 3, 3, NV, WIDTH, device="cpu", generator=torch.Generator().manual_seed(11))
+    b = FNO2d(1, 1, 3, 3, NV, WIDTH, device="cpu", generator=torch.Generator().manual_seed(11))
+    c = FNO2d(1, 1, 3, 3, NV, WIDTH, device="cpu", generator=torch.Generator().manual_seed(12))
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not all(torch.equal(sa[k], sc[k]) for k in sa)

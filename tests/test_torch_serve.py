@@ -49,7 +49,7 @@ def _data(seed=0):
 def setup():
     data = _data()
     jm = JFNO2d(T_in=T_IN, step=1, modes1=3, modes2=3, num_vars=NV, width_time=4)
-    model = FNO2d(T_IN, 1, 3, 3, NV, 4, generator=torch.Generator().manual_seed(0))
+    model = FNO2d(T_IN, 1, 3, 3, NV, 4, device="cpu", generator=torch.Generator().manual_seed(0))
     template = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
                               jnp.zeros((1, NV, NX, NY, T_IN), jnp.float32))
     params = fno_params_from_torch(model.state_dict(), template)
@@ -129,7 +129,7 @@ def test_save_load_round_trip(setup, tmp_path):
     srv.calibrate(data[:N, ..., :T_IN], data[:N, ..., T_IN:], alpha=0.25, eps=1e-6)
     prefix = str(tmp_path / "bundle" / "ns_v1")
     srv.save(prefix)
-    fresh = FNO2d(T_IN, 1, 3, 3, NV, 4, generator=torch.Generator().manual_seed(99))
+    fresh = FNO2d(T_IN, 1, 3, 3, NV, 4, device="cpu", generator=torch.Generator().manual_seed(99))
     srv2 = CalibratedSurrogate.load(prefix, fresh, srv.residual_fn, fused=True)
     assert srv2.alpha == 0.25 and srv2.score == "aer+pre" and srv2.n_cal == N
     a_new = data[N:, ..., :T_IN]
