@@ -9,9 +9,10 @@ Every kernel lives beside a plain PyTorch version of the same math
 (`cppre_torch.ops.kernels`). A CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises. The CUDA sources are compiled with
 `nvcc` on first use (`cppre_torch.ops.kernels._build`). Entry points that
-make tensors of their own (`FNO2d`, `load_norms`, `NavierStokes2D`,
-`run_2d_cp`, `experiments.ns.run`) put them on the card unless the caller
-passes `device="cpu"`.
+make tensors of their own (`FNO2d`, `load_norms`, `normalizer_from_jax`,
+the normalizers' `from_ab` and `Identity`, the solvers, `run_2d_cp`, the
+experiments' `run`) put them on the card unless the caller passes
+`device="cpu"`.
 
 Numerics: training, the rollout and the CP path run in full float32. Callers on the GPU
 keep `torch.backends.cuda.matmul.allow_tf32` and

@@ -83,8 +83,10 @@ class CalibratedSurrogate:
         self.residual_fn = residual_fn
         self.step, self.T_out = step, T_out
         # the normalizers move to the model's device (in place)
-        self.in_norm = (Identity() if in_normalizer is None else in_normalizer).to(self.device)
-        self.out_norm = (Identity() if out_normalizer is None else out_normalizer).to(self.device)
+        self.in_norm = (Identity(device=self.device) if in_normalizer is None
+                        else in_normalizer).to(self.device)
+        self.out_norm = (Identity(device=self.device) if out_normalizer is None
+                         else out_normalizer).to(self.device)
         self.mode, self.score = mode, score
         self.layout_fn = layout_fn
         self.fused = fused

@@ -1,16 +1,19 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
 
-| kernel | wrapper | plain version | replaces |
-| K1 | `ns_joint_cp_diff_stats` | `ns_joint_cp_diff_stats_plain` | `stencil_kernels._joint_cp_diff_stats` |
-| K2 | `ns_momentum_residual_fused` | `ns_momentum_residual_plain` | `stencil_kernels._batched_residual_fused` |
-| K4 | `fno_block2d_fused` | `fno_block2d_plain` | `fno_block.fno_block2d_fused` |
-| K5 | `projection2d_fused` | `projection2d_plain` | `fno_block.projection2d_fused` |
-| K6 | `fno_block2d_bwd_fused` | `fno_block2d_bwd_plain` | `fno_block.fno_block2d_bwd_fused` |
-| K7 | `projection2d_bwd_fused` | `projection2d_bwd_plain` | `fno_block.projection2d_bwd_fused` |
+| kernel | counter (launches of every instance) | instances | replaces |
+| K1 | `_joint_cp_diff_stats` | `ns_/wave_/mhd_joint_cp_diff_stats`, the `*_joint_cp_scores_fused` entries | `stencil_kernels._joint_cp_diff_stats` |
+| K2 | `_batched_residual_fused` | `ns_momentum_residual_fused`, `mhd_residual_fused` (5 equations), `mhd_induction_residual_fused` | `stencil_kernels._batched_residual_fused` |
+| K4 | `fno_block2d_fused` | itself | `fno_block.fno_block2d_fused` |
+| K5 | `projection2d_fused` | itself | `fno_block.projection2d_fused` |
+| K6 | `fno_block2d_bwd_fused` | itself | `fno_block.fno_block2d_bwd_fused` |
+| K7 | `projection2d_bwd_fused` | itself | `fno_block.projection2d_bwd_fused` |
+| K8 | `fused_stencil_residual` | itself, `wave_residual_fused` | `stencil_kernels.fused_stencil_residual` |
+| K9 | `_joint_cp_scores_single_pass` | `ns_joint_cp_scores_fused`, `mhd_induction_joint_cp_scores_fused` with `single_pass=True` | `stencil_kernels._joint_cp_scores_single_pass` |
 
-(replaced functions under `cppre/ops/pallas/`). A CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises. Every wrapper counts
-its kernel launches in `.launches`; `launch_counts()` reads them all and
+(replaced functions under `cppre/ops/pallas/`). Each public wrapper has a
+plain twin named `*_plain`. A CPU tensor takes the plain version; a CUDA
+tensor launches the kernel or raises. Every kernel counts its launches in
+`.launches` on its counter; `launch_counts()` reads them all and
 `reset_launch_counts()` sets them to 0.
 """
 
@@ -26,21 +29,41 @@ from .fno_block import (
     projection2d_plain,
 )
 from .stencil_kernels import (
+    MHD_EQUATIONS,
+    _batched_residual_fused,
+    _joint_cp_diff_stats,
+    _joint_cp_scores_single_pass,
+    fused_stencil_residual,
+    fused_stencil_residual_plain,
+    mhd_induction_joint_cp_scores_fused,
+    mhd_induction_joint_cp_scores_plain,
+    mhd_induction_residual_fused,
+    mhd_joint_cp_diff_stats,
+    mhd_joint_cp_diff_stats_plain,
+    mhd_residual_fused,
+    mhd_residual_plain,
     ns_joint_cp_diff_stats,
     ns_joint_cp_diff_stats_plain,
     ns_joint_cp_scores_fused,
     ns_joint_cp_scores_plain,
     ns_momentum_residual_fused,
     ns_momentum_residual_plain,
+    wave_joint_cp_diff_stats,
+    wave_joint_cp_diff_stats_plain,
+    wave_joint_cp_scores_fused,
+    wave_joint_cp_scores_plain,
+    wave_residual_fused,
 )
 
 KERNELS = {
-    "K1": ns_joint_cp_diff_stats,
-    "K2": ns_momentum_residual_fused,
+    "K1": _joint_cp_diff_stats,
+    "K2": _batched_residual_fused,
     "K4": fno_block2d_fused,
     "K5": projection2d_fused,
     "K6": fno_block2d_bwd_fused,
     "K7": projection2d_bwd_fused,
+    "K8": fused_stencil_residual,
+    "K9": _joint_cp_scores_single_pass,
 }
 
 
@@ -56,12 +79,22 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNELS",
+    "MHD_EQUATIONS",
     "fno_block2d_bwd_fused",
     "fno_block2d_bwd_plain",
     "fno_block2d_fused",
     "fno_block2d_plain",
     "fno_kernel_limits",
+    "fused_stencil_residual",
+    "fused_stencil_residual_plain",
     "launch_counts",
+    "mhd_induction_joint_cp_scores_fused",
+    "mhd_induction_joint_cp_scores_plain",
+    "mhd_induction_residual_fused",
+    "mhd_joint_cp_diff_stats",
+    "mhd_joint_cp_diff_stats_plain",
+    "mhd_residual_fused",
+    "mhd_residual_plain",
     "ns_joint_cp_diff_stats",
     "ns_joint_cp_diff_stats_plain",
     "ns_joint_cp_scores_fused",
@@ -73,4 +106,9 @@ __all__ = [
     "projection2d_fused",
     "projection2d_plain",
     "reset_launch_counts",
+    "wave_joint_cp_diff_stats",
+    "wave_joint_cp_diff_stats_plain",
+    "wave_joint_cp_scores_fused",
+    "wave_joint_cp_scores_plain",
+    "wave_residual_fused",
 ]

@@ -1,43 +1,89 @@
-"""NS momentum PRE kernels: the residual (K2) and the joint-CP diff + moments (K1).
+"""PRE stencil kernels: residuals (K2, K8), the joint-CP diff + moments (K1)
+and the single-pass joint-CP scores (K9).
 
-Port of the NS instances of `cppre/ops/pallas/stencil_kernels.py`. Each
-kernel has a plain PyTorch version of the same math beside it:
+Port of `cppre/ops/pallas/stencil_kernels.py`, with its public names and
+signatures. One CUDA source (`csrc/stencil_kernels.cu`) holds the kernels,
+each a template over a *cell*, the residual at one output cell: NS momentum,
+the five ideal-MHD equations, or a constant tap table (the wave composite
+kernel). Here a cell is a `_Residual`: its CUDA kind and arguments, and its
+plain PyTorch math, which is the plain version of every kernel it runs in.
 
-* `ns_momentum_residual_fused` (CUDA `csrc/stencil_kernels.cu`) /
-  `ns_momentum_residual_plain`: fields [BS, Nvar>=3, Nt, Nx, Ny] (u, v, p)
-  -> interior residual [BS, Nt-2, Nx-2, Ny-2], equal to
-  `PRE_NS.residual_momentum(fields)`.
-* `ns_joint_cp_diff_stats` / `ns_joint_cp_diff_stats_plain`: truth and
-  prediction read once; returns (diff [BS, *out], sum [*out], sumsq [*out])
-  with diff = PRE(truth) - PRE(pred), optionally stored as bfloat16
-  (`diff_dtype`); the moments always come from the float32 diff.
-* `ns_joint_cp_scores_fused`: the joint-CP nonconformity scores, the diff +
-  moments kernel followed by the `_scores_from_diff_stats` epilogue in
-  plain torch (as in the JAX package, where it is jnp outside the kernel).
+* K2 `_batched_residual_fused`: fields [BS, Nvar, Nt, Nx, Ny] -> the
+  interior residual [BS, Nt-2, Nx-2, Ny-2]. Instances
+  `ns_momentum_residual_fused`, `mhd_residual_fused`,
+  `mhd_induction_residual_fused`.
+* K8 `fused_stencil_residual`: field [BS, Nt, Nx, Ny] and a constant odd
+  k^3 kernel -> [BS, Nt-k+1, Nx-k+1, Ny-k+1], optionally |.|; the plain
+  version is `stencil_shift_add(field, kernel, same=False)`.
+  `wave_residual_fused` names it for the wave experiment.
+* K1 `_joint_cp_diff_stats`: truth and prediction read once; its instances
+  return (diff [BS, *out], sum [*out], sumsq [*out]), diff = PRE(truth) - PRE(pred),
+  optionally stored as bfloat16 (`diff_dtype`; the moments always come
+  from the float32 diff). Instances `ns_joint_cp_diff_stats`,
+  `wave_joint_cp_diff_stats`, `mhd_joint_cp_diff_stats`.
+* The joint-CP scores [BS] (`ns_/wave_/mhd_induction_joint_cp_scores_fused`):
+  K1 followed by the `_scores_from_diff_stats` epilogue in plain torch, as
+  in the JAX package; or, with `single_pass=True` (NS and MHD entries), K9
+  `_joint_cp_scores_single_pass`, one launch and no diff tensor. On the
+  card `single_pass=True` always launches K9: its Hopper design stashes
+  nothing, so the TPU's VMEM fit test (`single_pass_fits`) has no
+  counterpart. The scores are those of the two-pass route.
+
+The modulation std of the scores comes from the centred sum of squares
+sum_b (d_b - mean)^2, a second pass over the batch (K1 forms it when the
+scores ask for it, K9 always), not from the JAX package's one-pass
+sumsq / n - mean^2: in float32 that difference cancels when a cell's diff
+varies over the batch by less than ~1e-3 of its mean, as it does where an
+untrained or lightly trained surrogate predicts nearly the same residual
+for every sample, and the sup-norm score peaks in exactly those cells.
+The scores then agree with `modulation_func` + `ncf_metric_joint` (a
+two-pass std) where the one-pass formula does not.
 
 Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises. Each kernel wrapper counts its launches in `.launches`.
+kernel or raises. Each kernel counts its launches, every instance together,
+on the function named above (`launch_counts()` in `ops.kernels`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import itertools
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from ..convops import stencil_shift_add
 from . import _build
 
 __all__ = [
+    "fused_stencil_residual",
+    "fused_stencil_residual_plain",
+    "wave_residual_fused",
     "ns_momentum_residual_fused",
     "ns_momentum_residual_plain",
+    "mhd_residual_fused",
+    "mhd_residual_plain",
+    "mhd_induction_residual_fused",
     "ns_joint_cp_diff_stats",
     "ns_joint_cp_diff_stats_plain",
+    "wave_joint_cp_diff_stats",
+    "wave_joint_cp_diff_stats_plain",
+    "mhd_joint_cp_diff_stats",
+    "mhd_joint_cp_diff_stats_plain",
     "ns_joint_cp_scores_fused",
     "ns_joint_cp_scores_plain",
+    "wave_joint_cp_scores_fused",
+    "wave_joint_cp_scores_plain",
+    "mhd_induction_joint_cp_scores_fused",
+    "mhd_induction_joint_cp_scores_plain",
+    "MHD_EQUATIONS",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+MHD_EQUATIONS = ("continuity", "momentum", "energy", "induction", "gauss")
+GAMMA = 5.0 / 3.0
 
 
 def _interior(a):
@@ -62,7 +108,7 @@ def _d_lap(a):
 
 
 def _coef(dt, dx, dy, nu):
-    """The float32 constants of the residual, in the kernels' order."""
+    """The float32 constants of the NS residual, in the kernels' order."""
     f = lambda v: float(np.float32(v))
     return f(dx * dy), f(dt * dy), f(dt * dx), f(nu), f(dt)
 
@@ -81,128 +127,428 @@ def _ns_momentum_math(fields, dt, dx, dy, nu):
     return res_x + res_y
 
 
-def _check_fields(fields, what):
-    if fields.ndim != 5 or fields.shape[1] < 3 or min(fields.shape[2:]) < 3:
-        raise ValueError(f"{what}: expected [BS, Nvar>=3, Nt>=3, Nx>=3, Ny>=3] fields, "
-                         f"got {tuple(fields.shape)}")
+def _mhd_math(equation, fields):
+    """The ideal-MHD residual `equation` on the interior window of
+    [BS, 6, Nt, Nx, Ny] fields (rho, u, v, p, Bx, By), in the term order of
+    `cppre.ops.pallas.stencil_kernels._mhd_math`."""
+    rho, u, v, p, Bx, By = (fields[:, i] for i in range(6))
+    I, d_t, d_x, d_y = _interior, _d_t, _d_x, _d_y
+    if equation == "continuity":
+        return (d_t(rho) + I(u) * d_x(rho) + I(rho) * d_x(u)
+                + I(v) * d_y(rho) + I(rho) * d_y(v))
+    if equation == "momentum":
+        inv_rho = 1.0 / I(rho)
+        res_x = (d_t(u) + I(u) * d_x(u) + inv_rho * d_x(p)
+                 - 2 * (I(Bx) * inv_rho) * d_x(Bx) + I(v) * d_y(u)
+                 - (I(By) * inv_rho) * d_y(Bx) - (I(Bx) * inv_rho) * d_y(By))
+        res_y = (d_t(v) + I(u) * d_x(v) + inv_rho * d_y(p)
+                 - 2 * (I(By) * inv_rho) * d_y(By) + I(v) * d_y(v)
+                 - (I(By) * inv_rho) * d_x(Bx) - (I(Bx) * inv_rho) * d_x(By))
+        return res_x + res_y
+    if equation == "energy":
+        p_gas = I(p) - 0.5 * (I(Bx) ** 2 + I(By) ** 2)
+        return (d_t(rho) + I(u) * d_x(p) + I(v) * d_y(p)
+                + (GAMMA - 2) * (I(u) * I(Bx) + I(v) * I(By)) * (d_x(Bx) + d_y(By))
+                + (GAMMA * p_gas + I(By) ** 2) * d_x(u)
+                + (GAMMA * p_gas + I(Bx) ** 2) * d_y(v)
+                - I(Bx) * I(By) * (d_y(u) + d_x(v)))
+    if equation == "induction":
+        res_x = d_t(Bx) - I(By) * d_y(u) + I(Bx) * d_y(v) - I(v) * d_y(Bx) + I(u) * d_y(By)
+        res_y = d_t(By) + I(By) * d_x(u) - I(Bx) * d_x(v) - I(v) * d_x(Bx) + I(u) * d_x(By)
+        return res_x + res_y
+    # gauss
+    return d_x(Bx) + d_y(By)
 
 
-# ---- K2 ---------------------------------------------------------------------
+# ---- cells --------------------------------------------------------------------
+
+class _Residual(NamedTuple):
+    """One residual as the kernels take it: the CUDA cell kind (see
+    `csrc/stencil_kernels.cu`), the fields it needs, the stencil extent k
+    (outputs are N - k + 1 on each axis), the NS constants, the tap kernel,
+    and the plain math [BS, Nvar, Nt, Nx, Ny] -> [BS, *out]."""
+    kind: int
+    nvar: int
+    k: int
+    math: Callable
+    coef: tuple = (0.0,) * 5
+    kernel: np.ndarray | None = None
+
+
+def _ns_cell(dt, dx, dy, nu):
+    return _Residual(0, 3, 3, lambda f: _ns_momentum_math(f, dt, dx, dy, nu),
+                     _coef(dt, dx, dy, nu))
+
+
+def _mhd_cell(equation):
+    if equation not in MHD_EQUATIONS:
+        raise ValueError(f"unknown MHD equation {equation!r}")
+    return _Residual(1 + MHD_EQUATIONS.index(equation), 6, 3,
+                     functools.partial(_mhd_math, equation))
+
+
+def _taps_cell(kernel):
+    kernel = np.asarray(kernel)
+    k = kernel.shape[0]
+    if kernel.ndim != 3 or kernel.shape != (k, k, k) or k % 2 != 1:
+        raise ValueError(f"stencil kernels must be [k, k, k] with odd k, got {kernel.shape}")
+    return _Residual(6, 1, k, lambda f: stencil_shift_add(f[:, 0], kernel, same=False),
+                     kernel=kernel)
+
+
+@functools.lru_cache(maxsize=32)
+def _tap_table(kernel_bytes, k, dtype, nx, ny, device):
+    """The non-zero taps of a [k, k, k] kernel in `_taps` order
+    (itertools.product, zeros dropped): int32 linear offsets for an
+    [Nt, Nx, Ny] field and float32 weights, on `device`."""
+    kernel = np.frombuffer(kernel_bytes, dtype=dtype).reshape(k, k, k)
+    taps = [idx for idx in itertools.product(range(k), repeat=3) if kernel[idx] != 0.0]
+    off = [it * nx * ny + ix * ny + iy for it, ix, iy in taps]
+    w = [float(np.float32(kernel[idx])) for idx in taps]
+    return (torch.tensor(off, dtype=torch.int32, device=device),
+            torch.tensor(w, dtype=torch.float32, device=device))
+
+
+def _cell_args(res: _Residual, shape, device):
+    """The cell arguments of the C interface: kind, the five NS constants,
+    the tap table (pointers and count, 0 for the fixed cells), and the
+    table's tensors, which the caller holds over the launch."""
+    if res.kernel is None:
+        return (res.kind, *res.coef, None, None, 0), ()
+    kern = np.ascontiguousarray(res.kernel)
+    off, w = _tap_table(kern.tobytes(), res.k, kern.dtype.str, shape[-2], shape[-1], device)
+    return (res.kind, *res.coef, off.data_ptr(), w.data_ptr(), off.numel()), (off, w)
+
+
+def _check_fields(fields, res: _Residual, what):
+    if (fields.ndim != 5 or fields.shape[1] < res.nvar
+            or min(fields.shape[2:]) < res.k):
+        raise ValueError(f"{what}: expected [BS, Nvar>={res.nvar}, Nt, Nx, Ny] fields with "
+                         f"every axis >= {res.k}, got {tuple(fields.shape)}")
+
+
+def _out_shape(shape, k):
+    return tuple(n - k + 1 for n in shape[2:])
+
+
+# ---- K2 and K8: the residual ----------------------------------------------------
+
+def _launch_residual(fields, res: _Residual, take_abs: bool, what: str):
+    _build.require(fields, what)
+    bs, nvar, nt, nx, ny = fields.shape
+    out = torch.empty((bs,) + _out_shape(fields.shape, res.k), device=fields.device,
+                      dtype=torch.float32)
+    cell, tables = _cell_args(res, fields.shape, fields.device)
+    lib = _build.library("stencil_kernels")
+    fn = _build.declare(lib, "cppre_stencil_residual",
+                        [_I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P, _I,
+                         _I, _P])
+    with torch.cuda.device(fields.device):
+        rc = fn(cell[0], fields.data_ptr(), out.data_ptr(), bs, nvar, nt, nx, ny, res.k,
+                *cell[1:], int(take_abs), _build.stream_of(fields))
+    _build.check(lib, rc, what)
+    return out
+
+
+def _batched_residual_fused(fields, res: _Residual, what: str = "residual"):
+    """Kernel K2: the per-sample interior residual of cell `res`."""
+    _check_fields(fields, res, what)
+    if not _build.on_cuda(fields):
+        return res.math(fields)
+    out = _launch_residual(fields, res, False, what)
+    _batched_residual_fused.launches += 1
+    return out
+
+
+_batched_residual_fused.launches = 0
+
 
 def ns_momentum_residual_plain(fields, dt: float, dx: float, dy: float, nu: float = 0.001):
     """Plain PyTorch NS momentum residual: [BS, Nvar, Nt, Nx, Ny] -> [BS, Nt-2, Nx-2, Ny-2]."""
-    _check_fields(fields, "ns_momentum_residual")
-    return _ns_momentum_math(fields, dt, dx, dy, nu)
+    res = _ns_cell(dt, dx, dy, nu)
+    _check_fields(fields, res, "ns_momentum_residual")
+    return res.math(fields)
 
 
 def ns_momentum_residual_fused(fields, dt: float, dx: float, dy: float, nu: float = 0.001):
     """Fused NS momentum PRE (kernel K2): fields [BS, Nvar>=3, Nt, Nx, Ny]
     (u, v, p) -> interior residual [BS, Nt-2, Nx-2, Ny-2], equal to
     `PRE_NS.residual_momentum(fields, boundary=False)`."""
-    _check_fields(fields, "ns_momentum_residual_fused")
-    if not _build.on_cuda(fields):
-        return ns_momentum_residual_plain(fields, dt, dx, dy, nu)
-    _build.require(fields, "fields")
-    bs, nvar, nt, nx, ny = fields.shape
-    out = torch.empty((bs, nt - 2, nx - 2, ny - 2), device=fields.device, dtype=torch.float32)
-    lib = _build.library("stencil_kernels")
-    fn = _build.declare(lib, "cppre_ns_momentum_residual",
-                        [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P])
-    with torch.cuda.device(fields.device):
-        rc = fn(fields.data_ptr(), out.data_ptr(), bs, nvar, nt, nx, ny,
-                *_coef(dt, dx, dy, nu), _build.stream_of(fields))
-    _build.check(lib, rc, "ns_momentum_residual_fused")
-    ns_momentum_residual_fused.launches += 1
+    return _batched_residual_fused(fields, _ns_cell(dt, dx, dy, nu),
+                                   "ns_momentum_residual_fused")
+
+
+def mhd_residual_plain(fields, equation: str = "induction"):
+    """Plain PyTorch `mhd_residual_fused`."""
+    res = _mhd_cell(equation)
+    _check_fields(fields, res, "mhd_residual")
+    return res.math(fields)
+
+
+def mhd_residual_fused(fields, equation: str = "induction"):
+    """Fused ideal-MHD PRE (kernel K2) for any of the five selectable
+    equations: fields [BS, 6, Nt, Nx, Ny] (rho, u, v, p, Bx, By) -> interior
+    residual [BS, Nt-2, Nx-2, Ny-2], equal to `PRE_MHD.residual(fields,
+    equation, boundary=False)`. The kernel reads only the fields the
+    equation uses."""
+    return _batched_residual_fused(fields, _mhd_cell(equation), "mhd_residual_fused")
+
+
+def mhd_induction_residual_fused(fields):
+    """Fused ideal-MHD induction PRE (see `mhd_residual_fused`)."""
+    return mhd_residual_fused(fields, "induction")
+
+
+def fused_stencil_residual_plain(field, kernel, take_abs: bool = False):
+    """Plain PyTorch `fused_stencil_residual`."""
+    res = stencil_shift_add(field, np.asarray(kernel), same=False)
+    return res.abs() if take_abs else res
+
+
+def fused_stencil_residual(field, kernel, take_abs: bool = False):
+    """Kernel K8: a constant stencil on the valid interior, |D(field)| with
+    `take_abs`. field [BS, Nt, Nx, Ny]; kernel a constant [k, k, k] (odd k)
+    array. Returns [BS, Nt-k+1, Nx-k+1, Ny-k+1], the reference crop for
+    k = 3."""
+    res = _taps_cell(kernel)
+    if field.ndim != 4:
+        raise ValueError(f"fused_stencil_residual: expected [BS, Nt, Nx, Ny], "
+                         f"got {tuple(field.shape)}")
+    _check_fields(field[:, None], res, "fused_stencil_residual")
+    if not _build.on_cuda(field):
+        return fused_stencil_residual_plain(field, res.kernel, take_abs)
+    out = _launch_residual(field[:, None], res, take_abs, "fused_stencil_residual")
+    fused_stencil_residual.launches += 1
     return out
 
 
-ns_momentum_residual_fused.launches = 0
+fused_stencil_residual.launches = 0
 
 
-# ---- K1 ---------------------------------------------------------------------
+def wave_residual_fused(field, kernel):
+    """Fused wave composite-kernel PRE: field [BS, Nt, Nx, Ny], kernel the
+    additive D_tt - (c dt/dx)^2 D_xxyy stencil. Kernel K8, named for the
+    wave experiment."""
+    return fused_stencil_residual(field, kernel)
 
-def ns_joint_cp_diff_stats_plain(truth, prediction, dt: float, dx: float, dy: float,
-                                 nu: float = 0.001, diff_dtype=None):
-    """Plain PyTorch (diff, sum, sumsq) of `ns_joint_cp_diff_stats`."""
-    _check_fields(truth, "ns_joint_cp_diff_stats")
-    diff = (_ns_momentum_math(truth, dt, dx, dy, nu)
-            - _ns_momentum_math(prediction, dt, dx, dy, nu))
+
+# ---- K1: diff and moments ------------------------------------------------------
+
+def _diff_stats_plain(truth, prediction, res: _Residual, diff_dtype=None, centred=False):
+    diff = res.math(truth) - res.math(prediction)
     s, sq = torch.sum(diff, dim=0), torch.sum(diff * diff, dim=0)
-    return diff.to(diff_dtype or truth.dtype), s, sq
+    m2 = torch.sum((diff - s / truth.shape[0]) ** 2, dim=0) if centred else None
+    return diff.to(diff_dtype or truth.dtype), s, sq, m2
 
 
-def ns_joint_cp_diff_stats(truth, prediction, dt: float, dx: float, dy: float,
-                           nu: float = 0.001, samples_per_block: int = 1, diff_dtype=None):
-    """One-pass joint-CP front end (kernel K1): reads truth and prediction
-    [BS, Nvar>=3, Nt, Nx, Ny] once and returns (diff [BS, Nt-2, Nx-2, Ny-2],
-    sum, sumsq [Nt-2, Nx-2, Ny-2]), diff = PRE(truth) - PRE(pred), the
-    moments summed over the batch in sample order.
+def _check_pair(truth, prediction, res, what):
+    _check_fields(truth, res, what)
+    if tuple(prediction.shape) != tuple(truth.shape):
+        raise ValueError(f"{what}: truth {tuple(truth.shape)} and prediction "
+                         f"{tuple(prediction.shape)} differ in shape")
+
+
+def _joint_cp_diff_stats(truth, prediction, res: _Residual, samples_per_block: int = 1,
+                         diff_dtype=None, what: str = "joint_cp_diff_stats",
+                         centred: bool = False):
+    """Kernel K1: (diff [BS, *out], sum [*out], sumsq [*out], m2) of cell
+    `res`, the moments summed over the batch in sample order; with
+    `centred`, m2 [*out] is the centred sum of squares (else None).
 
     `diff_dtype=torch.bfloat16` stores the diff in bfloat16 (halving its
     write and the score pass's read); the moments still accumulate from
     the float32 diff. `samples_per_block` is accepted for signature parity
     with `cppre`: every thread of the kernel walks the whole batch, so the
-    result does not depend on it.
-    """
-    _check_fields(truth, "ns_joint_cp_diff_stats")
-    if tuple(prediction.shape) != tuple(truth.shape):
-        raise ValueError(f"truth {tuple(truth.shape)} and prediction "
-                         f"{tuple(prediction.shape)} differ in shape")
+    result does not depend on it. Counts the launches of every K1 instance."""
+    _check_pair(truth, prediction, res, what)
     if samples_per_block < 1:
         raise ValueError(f"samples_per_block must be >= 1, got {samples_per_block}")
     diff_dtype = diff_dtype or torch.float32
     if diff_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"diff_dtype must be float32 or bfloat16, got {diff_dtype}")
     if not _build.on_cuda(truth):
-        return ns_joint_cp_diff_stats_plain(truth, prediction, dt, dx, dy, nu, diff_dtype)
+        return _diff_stats_plain(truth, prediction, res, diff_dtype, centred)
     _build.require(truth, "truth")
     _build.require(prediction, "prediction", truth.shape, device=truth.device)
     bs, nvar, nt, nx, ny = truth.shape
-    out = (nt - 2, nx - 2, ny - 2)
+    out = _out_shape(truth.shape, res.k)
     diff = torch.empty((bs,) + out, device=truth.device, dtype=diff_dtype)
-    s = torch.empty(out, device=truth.device, dtype=torch.float32)
-    sq = torch.empty(out, device=truth.device, dtype=torch.float32)
+    s, sq = (torch.empty(out, device=truth.device, dtype=torch.float32) for _ in range(2))
+    m2 = torch.empty(out, device=truth.device, dtype=torch.float32) if centred else None
+    cell, tables = _cell_args(res, truth.shape, truth.device)
     lib = _build.library("stencil_kernels")
-    fn = _build.declare(lib, "cppre_ns_joint_cp_diff_stats",
-                        [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-                         _F, _F, _F, _F, _F, _P])
+    fn = _build.declare(lib, "cppre_joint_cp_diff_stats",
+                        [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _F, _F, _F, _F, _F, _P, _P, _I, _P])
     with torch.cuda.device(truth.device):
-        rc = fn(truth.data_ptr(), prediction.data_ptr(), diff.data_ptr(),
+        rc = fn(cell[0], truth.data_ptr(), prediction.data_ptr(), diff.data_ptr(),
                 int(diff_dtype == torch.bfloat16), s.data_ptr(), sq.data_ptr(),
-                bs, nvar, nt, nx, ny, *_coef(dt, dx, dy, nu), _build.stream_of(truth))
-    _build.check(lib, rc, "ns_joint_cp_diff_stats")
-    ns_joint_cp_diff_stats.launches += 1
-    return diff, s, sq
+                None if m2 is None else m2.data_ptr(), bs, nvar, nt, nx, ny, res.k,
+                *cell[1:], _build.stream_of(truth))
+    _build.check(lib, rc, what)
+    _joint_cp_diff_stats.launches += 1
+    return diff, s, sq, m2
 
 
-ns_joint_cp_diff_stats.launches = 0
+_joint_cp_diff_stats.launches = 0
 
 
-def _scores_from_diff_stats(diff, s, sq, n: int, eps: float):
-    """Modulation std from the one-pass moments, then the per-sample
+def ns_joint_cp_diff_stats_plain(truth, prediction, dt: float, dx: float, dy: float,
+                                 nu: float = 0.001, diff_dtype=None):
+    """Plain PyTorch (diff, sum, sumsq) of `ns_joint_cp_diff_stats`."""
+    res = _ns_cell(dt, dx, dy, nu)
+    _check_pair(truth, prediction, res, "ns_joint_cp_diff_stats")
+    return _diff_stats_plain(truth, prediction, res, diff_dtype)[:3]
+
+
+def ns_joint_cp_diff_stats(truth, prediction, dt: float, dx: float, dy: float,
+                           nu: float = 0.001, samples_per_block: int = 1, diff_dtype=None):
+    """One-pass joint-CP front end over the NS momentum PRE (kernel K1):
+    truth and prediction [BS, Nvar>=3, Nt, Nx, Ny] -> (diff [BS, Nt-2,
+    Nx-2, Ny-2], sum, sumsq [Nt-2, Nx-2, Ny-2]); see `_joint_cp_diff_stats`."""
+    return _joint_cp_diff_stats(truth, prediction, _ns_cell(dt, dx, dy, nu),
+                                samples_per_block, diff_dtype, "ns_joint_cp_diff_stats")[:3]
+
+
+def wave_joint_cp_diff_stats_plain(truth, prediction, kernel, diff_dtype=None):
+    """Plain PyTorch (diff, sum, sumsq) of `wave_joint_cp_diff_stats`."""
+    res = _taps_cell(kernel)
+    _check_pair(truth[:, None], prediction[:, None], res, "wave_joint_cp_diff_stats")
+    return _diff_stats_plain(truth[:, None], prediction[:, None], res, diff_dtype)[:3]
+
+
+def wave_joint_cp_diff_stats(truth, prediction, kernel, samples_per_block: int = 1,
+                             diff_dtype=None):
+    """K1 over a constant-stencil PRE (the wave composite kernel): truth and
+    prediction [BS, Nt, Nx, Ny], kernel [k, k, k] with odd k -> (diff
+    [BS, Nt-k+1, Nx-k+1, Ny-k+1], sum, sumsq)."""
+    return _joint_cp_diff_stats(truth[:, None], prediction[:, None], _taps_cell(kernel),
+                                samples_per_block, diff_dtype, "wave_joint_cp_diff_stats")[:3]
+
+
+def mhd_joint_cp_diff_stats_plain(truth, prediction, equation: str = "induction",
+                                  diff_dtype=None):
+    """Plain PyTorch (diff, sum, sumsq) of `mhd_joint_cp_diff_stats`."""
+    res = _mhd_cell(equation)
+    _check_pair(truth, prediction, res, "mhd_joint_cp_diff_stats")
+    return _diff_stats_plain(truth, prediction, res, diff_dtype)[:3]
+
+
+def mhd_joint_cp_diff_stats(truth, prediction, equation: str = "induction",
+                            samples_per_block: int = 1, diff_dtype=None):
+    """K1 over an ideal-MHD PRE: truth and prediction [BS, 6, Nt, Nx, Ny] ->
+    (diff [BS, Nt-2, Nx-2, Ny-2], sum, sumsq)."""
+    return _joint_cp_diff_stats(truth, prediction, _mhd_cell(equation), samples_per_block,
+                                diff_dtype, "mhd_joint_cp_diff_stats")[:3]
+
+
+# ---- scores: K1 + epilogue, or K9 ----------------------------------------------
+
+def _scores_from_diff_stats(diff, m2, n: int, eps: float):
+    """Modulation std from the centred sum of squares, then the per-sample
     sup-norm score (modulation_func + ncf_metric_joint). A bfloat16 diff is
     upcast first, so the score arithmetic is float32."""
-    mean = s / n
-    mod = torch.sqrt(torch.clamp(sq / n - mean * mean, min=0.0)) + eps
-    r = diff.to(s.dtype).abs() / mod
+    mod = torch.sqrt(m2 / n) + eps
+    r = diff.to(m2.dtype).abs() / mod
     return torch.amax(r, dim=tuple(range(1, diff.ndim)))
+
+
+def _joint_cp_scores_single_pass(truth, prediction, res: _Residual, eps: float,
+                                 what: str = "joint_cp_scores_single_pass"):
+    """Kernel K9: the joint-CP scores [BS] of cell `res` in one launch that
+    writes no diff tensor. Equal to the two-pass route's scores: the same
+    cell forms each diff, the sum and the centred sum of squares are taken
+    in the same order and rounding, and a maximum does not depend on the
+    order it is taken in."""
+    _check_pair(truth, prediction, res, what)
+    if not _build.on_cuda(truth):
+        d, _, _, m2 = _diff_stats_plain(truth, prediction, res, centred=True)
+        return _scores_from_diff_stats(d, m2, truth.shape[0], eps)
+    _build.require(truth, "truth")
+    _build.require(prediction, "prediction", truth.shape, device=truth.device)
+    bs, nvar, nt, nx, ny = truth.shape
+    bits = torch.zeros(bs, device=truth.device, dtype=torch.int32)
+    cell, tables = _cell_args(res, truth.shape, truth.device)
+    lib = _build.library("stencil_kernels")
+    fn = _build.declare(lib, "cppre_joint_cp_scores_single_pass",
+                        [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _F, _F, _F, _F, _F, _P, _P, _I, _F, _P])
+    with torch.cuda.device(truth.device):
+        rc = fn(cell[0], truth.data_ptr(), prediction.data_ptr(), bits.data_ptr(), bs, nvar,
+                nt, nx, ny, res.k, *cell[1:], float(np.float32(eps)),
+                _build.stream_of(truth))
+    _build.check(lib, rc, what)
+    _joint_cp_scores_single_pass.launches += 1
+    return bits.view(torch.float32)
+
+
+_joint_cp_scores_single_pass.launches = 0
+
+
+def _scores(truth, prediction, res, eps, samples_per_block, diff_dtype, single_pass, what):
+    if single_pass:
+        return _joint_cp_scores_single_pass(truth, prediction, res, eps, what)
+    diff, _, _, m2 = _joint_cp_diff_stats(truth, prediction, res, samples_per_block,
+                                          diff_dtype, what, centred=True)
+    return _scores_from_diff_stats(diff, m2, truth.shape[0], eps)
+
+
+def _scores_plain(truth, prediction, res, eps, diff_dtype, what):
+    _check_pair(truth, prediction, res, what)
+    diff, _, _, m2 = _diff_stats_plain(truth, prediction, res, diff_dtype, centred=True)
+    return _scores_from_diff_stats(diff, m2, truth.shape[0], eps)
 
 
 def ns_joint_cp_scores_plain(truth, prediction, dt: float, dx: float, dy: float,
                              nu: float = 0.001, eps: float = 1e-6, diff_dtype=None):
     """Plain PyTorch `ns_joint_cp_scores_fused`."""
-    diff, s, sq = ns_joint_cp_diff_stats_plain(truth, prediction, dt, dx, dy, nu, diff_dtype)
-    return _scores_from_diff_stats(diff, s, sq, truth.shape[0], eps)
+    return _scores_plain(truth, prediction, _ns_cell(dt, dx, dy, nu), eps, diff_dtype,
+                         "ns_joint_cp_scores")
 
 
 def ns_joint_cp_scores_fused(truth, prediction, dt: float, dx: float, dy: float,
                              nu: float = 0.001, eps: float = 1e-6,
-                             samples_per_block: int = 1, diff_dtype=None):
+                             samples_per_block: int = 1, diff_dtype=None,
+                             single_pass: bool = False):
     """Joint-CP nonconformity scores [BS] over the NS momentum PRE:
     per-sample sup-norm of |diff| / (std(diff, axis=0) + eps), the same as
-    `modulation_func` + `ncf_metric_joint`. The diff and moments come from
-    kernel K1 (`ns_joint_cp_diff_stats`)."""
-    diff, s, sq = ns_joint_cp_diff_stats(truth, prediction, dt, dx, dy, nu,
-                                         samples_per_block=samples_per_block,
-                                         diff_dtype=diff_dtype)
-    return _scores_from_diff_stats(diff, s, sq, truth.shape[0], eps)
+    `modulation_func` + `ncf_metric_joint`. Two-pass through kernel K1 and
+    the epilogue; `single_pass=True` launches K9 instead (it stages no diff,
+    so `diff_dtype` and `samples_per_block` do not apply)."""
+    return _scores(truth, prediction, _ns_cell(dt, dx, dy, nu), eps, samples_per_block,
+                   diff_dtype, single_pass, "ns_joint_cp_scores_fused")
+
+
+def mhd_induction_joint_cp_scores_plain(truth, prediction, eps: float = 1e-6,
+                                        diff_dtype=None):
+    """Plain PyTorch `mhd_induction_joint_cp_scores_fused`."""
+    return _scores_plain(truth, prediction, _mhd_cell("induction"), eps, diff_dtype,
+                         "mhd_induction_joint_cp_scores")
+
+
+def mhd_induction_joint_cp_scores_fused(truth, prediction, eps: float = 1e-6,
+                                        samples_per_block: int = 1, diff_dtype=None,
+                                        single_pass: bool = False):
+    """Joint-CP nonconformity scores [BS] over the MHD induction PRE, one
+    read of each [BS, 6, Nt, Nx, Ny] tensor per pass: K1 and the epilogue,
+    or with `single_pass=True` kernel K9."""
+    return _scores(truth, prediction, _mhd_cell("induction"), eps, samples_per_block,
+                   diff_dtype, single_pass, "mhd_induction_joint_cp_scores_fused")
+
+
+def wave_joint_cp_scores_plain(truth, prediction, kernel, eps: float = 1e-6,
+                               diff_dtype=None):
+    """Plain PyTorch `wave_joint_cp_scores_fused`."""
+    return _scores_plain(truth[:, None], prediction[:, None], _taps_cell(kernel), eps,
+                         diff_dtype, "wave_joint_cp_scores")
+
+
+def wave_joint_cp_scores_fused(truth, prediction, kernel, eps: float = 1e-6,
+                               samples_per_block: int = 1, diff_dtype=None):
+    """Joint-CP nonconformity scores [BS] over the wave composite-kernel PRE
+    through K1 and the epilogue. truth/prediction [BS, Nt, Nx, Ny]
+    single-variable trajectories; kernel the additive D_tt - (c dt/dx)^2
+    D_xxyy stencil, or any [k, k, k] kernel with odd k (valid interior
+    (Nt-k+1, Nx-k+1, Ny-k+1))."""
+    return _scores(truth[:, None], prediction[:, None], _taps_cell(kernel), eps,
+                   samples_per_block, diff_dtype, False, "wave_joint_cp_scores_fused")

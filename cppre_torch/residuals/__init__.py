@@ -1,5 +1,7 @@
 """Physics Residual Error (PRE) operators, one module per PDE family."""
 
+from .mhd import PRE_MHD
 from .ns import PRE_NS
+from .wave import PRE_Wave
 
-__all__ = ["PRE_NS"]
+__all__ = ["PRE_MHD", "PRE_NS", "PRE_Wave"]

@@ -4,7 +4,10 @@ All normalizers are affine, ``encode(x) = a*x + b`` and
 ``decode(y) = (y - b) / a``, with float32 tensors ``a`` and ``b``; they
 serialize to the reference's `{in_a, in_b, out_a, out_b}` npz contract
 (`cppre_torch.utils.checkpoint.save_norms`). ``from_ab`` rebuilds one from
-saved coefficients, including those of a `cppre` normalizer.
+saved coefficients, including those of a `cppre` normalizer. Normalizers
+fitted to data live on the data's device; `from_ab` and `Identity` make
+their coefficients from nothing and put them on the card unless the caller
+passes `device="cpu"` (`Identity(x)` follows a tensor `x`).
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ class _AffineNormalizer:
         return self
 
     @classmethod
-    def from_ab(cls, a, b, device=None):
+    def from_ab(cls, a, b, device="cuda"):
         obj = cls.__new__(cls)
         _AffineNormalizer.__init__(obj, a, b, device)
         return obj
@@ -76,5 +79,7 @@ class GaussianNormalizer(_AffineNormalizer):
 
 
 class Identity(_AffineNormalizer):
-    def __init__(self, x=None, device=None):
+    def __init__(self, x=None, device="cuda"):
+        if isinstance(x, torch.Tensor):
+            device = x.device
         super().__init__(1.0, 0.0, device)

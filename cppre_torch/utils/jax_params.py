@@ -8,7 +8,7 @@ params pytree (numpy leaves; the caller runs `jax.device_get`) into a
 params bit for bit. No JAX import is needed here.
 
 `normalizer_from_jax(norm)` rebuilds a `cppre` affine normalizer through
-`from_ab`.
+`from_ab`, on the card unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ def fno2d_from_jax(params_np, model):
     return model
 
 
-def normalizer_from_jax(norm, device=None):
+def normalizer_from_jax(norm, device="cuda"):
     """A `cppre` normalizer (any affine one) as the port's, via `from_ab`."""
     from ..train.normalizers import _AffineNormalizer
 

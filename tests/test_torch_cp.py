@@ -118,7 +118,7 @@ def test_normalizers_match_cppre(cls):
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(ours.decode(enc).numpy(), x, rtol=1e-5, atol=1e-5)
     # carried across: the port's normalizer from cppre's coefficients
-    carried = normalizer_from_jax(ref)
+    carried = normalizer_from_jax(ref, device="cpu")
     np.testing.assert_array_equal(carried.a.numpy(), np.asarray(ref.a))
     np.testing.assert_array_equal(carried.encode(torch.tensor(x)).numpy(),
                                   np.asarray(ref.encode(jnp.asarray(x))))

@@ -13,7 +13,9 @@ Tolerances (float32, another summation order than the plain version):
 1e-5 of max|plain| for the stencil kernels, 1e-4 for the FNO kernels'
 outputs and for dx/dz of their backward passes; 1e-3 for the backward
 weight gradients, which are sums over every pixel of the batch taken in
-another order than autograd's.
+another order than autograd's. K9's scores agree with the two-pass route's
+within 1e-6 relative (the same cell forms each diff; the epilogue's
+arithmetic is repeated in the kernel).
 """
 
 import numpy as np
@@ -54,9 +56,9 @@ def _close(got, ref, rel):
 @pytest.mark.parametrize("shape", [(3, 4, 5, 13, 37), (2, 3, 3, 3, 200)])
 def test_ns_momentum_residual_kernel(dev, shape):
     f = _randn(shape, 0, dev)
-    before = K.ns_momentum_residual_fused.launches
+    before = K.launch_counts()["K2"]
     _close(K.ns_momentum_residual_fused(f, *ARGS), K.ns_momentum_residual_plain(f, *ARGS), 1e-5)
-    assert K.ns_momentum_residual_fused.launches == before + 1
+    assert K.launch_counts()["K2"] == before + 1
 
 
 @pytest.mark.parametrize("diff_dtype", [None, torch.bfloat16])
@@ -192,7 +194,116 @@ def test_fused_train_step_matches_plain_autograd(dev):
         loss, full = step(xx, yy)
         losses.append(float(loss))
         grads.append([p.grad for p in model.parameters()])
-    assert K.launch_counts() == {"K1": 0, "K2": 0, "K4": 36, "K5": 6, "K6": 18, "K7": 3}
+    assert K.launch_counts() == {"K1": 0, "K2": 0, "K4": 36, "K5": 6, "K6": 18, "K7": 3,
+                                 "K8": 0, "K9": 0}
     assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
     for ga, gb in zip(*grads):
         _close(ga, gb, 1e-3)
+
+
+# ---- the wave and MHD instances, K8 and K9 -----------------------------------
+
+def _mhd(shape, seed, dev):
+    f = _randn(shape, seed, dev)
+    f[:, 0] = 1.5 + 0.3 * torch.tanh(f[:, 0])   # density away from 0
+    return f
+
+
+def _taps(k, seed):
+    kern = np.random.default_rng(seed).standard_normal((k, k, k)).astype(np.float32)
+    kern[np.random.default_rng(seed + 1).random(kern.shape) < 0.4] = 0.0
+    return kern
+
+
+@pytest.mark.parametrize("k,take_abs", [(3, False), (3, True), (5, False), (5, True)])
+def test_stencil_kernel(dev, k, take_abs):
+    f = _randn((3, 9, 13, 70), 20, dev)
+    kern = _taps(k, 21)
+    before = K.launch_counts()["K8"]
+    got = K.fused_stencil_residual(f, kern, take_abs=take_abs)
+    assert K.launch_counts()["K8"] == before + 1
+    _close(got, K.fused_stencil_residual_plain(f, kern, take_abs=take_abs), 1e-5)
+    with pytest.raises(ValueError):
+        K.fused_stencil_residual(f, np.ones((2, 2, 2), np.float32))   # even extent
+
+
+@pytest.mark.parametrize("equation", K.MHD_EQUATIONS)
+def test_mhd_residual_kernel(dev, equation):
+    f = _mhd((3, 6, 5, 17, 133), 22, dev)
+    before = K.launch_counts()["K2"]
+    _close(K.mhd_residual_fused(f, equation), K.mhd_residual_plain(f, equation), 1e-5)
+    assert K.launch_counts()["K2"] == before + 1
+
+
+@pytest.mark.parametrize("family", ["wave3", "wave5", "mhd"])
+def test_wave_and_mhd_diff_stats_kernel(dev, family):
+    if family == "mhd":
+        t = _mhd((5, 6, 6, 11, 40), 23, dev)
+        run = lambda a, b: K.mhd_joint_cp_diff_stats(a, b)
+        plain = lambda a, b: K.mhd_joint_cp_diff_stats_plain(a, b)
+    else:
+        kern = _taps(3 if family == "wave3" else 5, 24)
+        t = _randn((5, 8, 12, 70), 23, dev)
+        run = lambda a, b: K.wave_joint_cp_diff_stats(a, b, kern)
+        plain = lambda a, b: K.wave_joint_cp_diff_stats_plain(a, b, kern)
+    p = t + 0.1 * _randn(t.shape, 25, dev)
+    got = run(t, p)
+    for g, r in zip(got, plain(t, p)):
+        _close(g, r, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, run(t, p)))
+
+
+@pytest.mark.parametrize("family", ["ns", "mhd"])
+def test_single_pass_scores_kernel(dev, family):
+    if family == "ns":
+        t = _randn((6, 3, 7, 12, 140), 26, dev)
+        run = lambda a, b, sp: K.ns_joint_cp_scores_fused(a, b, *ARGS, single_pass=sp)
+        plain = lambda a, b: K.ns_joint_cp_scores_plain(a, b, *ARGS)
+    else:
+        t = _mhd((6, 6, 7, 12, 140), 26, dev)
+        run = lambda a, b, sp: K.mhd_induction_joint_cp_scores_fused(a, b, single_pass=sp)
+        plain = lambda a, b: K.mhd_induction_joint_cp_scores_plain(a, b)
+    p = t + 0.1 * _randn(t.shape, 27, dev)
+    before = K.launch_counts()
+    one = run(t, p, True)
+    assert K.launch_counts()["K9"] == before["K9"] + 1
+    assert K.launch_counts()["K1"] == before["K1"]
+    two = run(t, p, False)
+    _close(one, plain(t, p), 1e-5)
+    assert (one - two).abs().max().item() <= 1e-6 * two.abs().max().item()
+    assert torch.equal(one, run(t, p, True))
+
+
+@pytest.mark.parametrize("width,v,nx,ny,m", [(32, 1, 64, 64, 16), (16, 6, 128, 128, 8)])
+def test_fno_block_kernels_at_wave_and_mhd_shapes(dev, width, v, nx, ny, m):
+    """K4 and K6 at the wave model's (width 32, modes 16, one variable,
+    64x64) and the MHD model's (width 16, modes 8, six variables, 128x128)
+    shapes."""
+    model = FNO2d(1, 1, m, m, v, width, device=dev,
+                  generator=torch.Generator().manual_seed(width + v))
+    x = _randn((2, width, v, nx, ny), 28, dev)
+    x3 = _randn((1, width, v, nx, ny), 29, dev)
+    g = _randn(x.shape, 30, dev)
+    with torch.no_grad():
+        _close(K.fno_block2d_fused(x, model.f2, x3, m, m),
+               K.fno_block2d_plain(x, model.f2, x3, m, m), 1e-4)
+    _grads_close(K.fno_block2d_bwd_fused(x, g, model.f2, x3, m, m),
+                 K.fno_block2d_bwd_plain(x, g, model.f2, x3, m, m), "K6")
+
+
+def test_made_from_nothing_defaults_to_the_card(dev):
+    """The normalizers, solvers and carried normalizers that make tensors of
+    their own put them on the card by default."""
+    from cppre_torch.solvers import Wave2D, mhd_solve_batch
+    from cppre_torch.train.normalizers import Identity, MinMaxNormalizer, _AffineNormalizer
+    from cppre_torch.utils import normalizer_from_jax
+
+    class _JaxLike:            # a cppre normalizer's coefficients, as numpy
+        a, b = np.float32(2.0), np.float32(-1.0)
+
+    for norm in (Identity(), _AffineNormalizer.from_ab(2.0, -1.0), normalizer_from_jax(_JaxLike)):
+        assert norm.a.device.type == "cuda" and norm.b.device.type == "cuda"
+    assert Identity(torch.zeros(3)).a.device.type == "cpu"       # follows a given tensor
+    assert MinMaxNormalizer(_randn((4, 3), 31, dev)).a.device.type == "cuda"
+    assert Wave2D(16, -1.0, 1.0, 1.0, 1.0).solve_batch([[20.0, 0.3, 0.3]]).is_cuda
+    assert mhd_solve_batch([[0.7, 0.8, 0.6]], 16, 1.0, 0.002, dt=1e-3, store_every=1)[0].is_cuda

@@ -64,8 +64,8 @@ def _surrogates(s, score, fused):
                       score=score)
     srv = CalibratedSurrogate(
         s["model"], lambda f: ns_momentum_residual_fused(f, DT, DX, DX, NU), step=1,
-        T_out=T_OUT, in_normalizer=normalizer_from_jax(s["j_in"]),
-        out_normalizer=normalizer_from_jax(s["j_out"]), mode="joint", score=score,
+        T_out=T_OUT, in_normalizer=normalizer_from_jax(s["j_in"], device="cpu"),
+        out_normalizer=normalizer_from_jax(s["j_out"], device="cpu"), mode="joint", score=score,
         fused=fused)
     return jsrv, srv
 
