@@ -18,7 +18,11 @@ version:
   5000 steps, FNO width 16, modes 8, six variables, batch 5), then the
   trained model served and calibrated, with K2's induction residual, and
   calibrated again through K1 and through K9.
-Training is cut to 2 epochs in all three. Phases, one line each:
+Training is cut to 2 epochs in all three. Then the joint-CP scores beyond
+the flagships: the time-chunked K3 at cppre's grid-scaling shapes (NS
+[12,3,21,512,512], MHD induction [25,6,21,256,256], wave [12,26,512,512])
+and the flat-layout K10-K12 at the shapes where K1 is timed. Phases, one
+line each:
 
   build      compile the kernels from `cppre_torch/csrc` (nvcc, in parallel);
              then one `ptxas` line per kernel function: registers and spills
@@ -52,11 +56,25 @@ Training is cut to 2 epochs in all three. Phases, one line each:
              the trained model, its qhat against the K1 route's, and K9's
              for MHD), `<family>-step` (one train step: launches, ms) and
              its `profile` line
+  scaling    per scaling shape (one `[kernels] kernel=K3` line each): the
+             explicit `*_joint_cp_diff_stats_chunked` entry, the routed
+             scores and calibrate at alpha=0.1 (the main path); K3 against
+             its plain version (1e-5 of max) and K1 (bit for bit, with its
+             centred pass), t_block 1, 2 and 5 bit for bit, the routed qhat
+             against the plain route's (1e-3), K3 / K1 / plain ms; then one
+             `[route]` line per flagship K1 shape, K1 ms beside K3 ms
+  flat       per family (NS; wave with the composite kernel and a corner-tap
+             kernel; MHD, five equations): the flat scores and calibrate by
+             `flat_routing_decision` and through the other route (the main
+             path); K10 against its plain version over the whole window
+             (1e-5 of max), K11 then K12 against K10 (bit for bit), the flat
+             qhat against the plain flat qhat (1e-3); K10, K11, K12, plain ms
 
 The launch counters are set to 0 before each main path (NS serve +
-calibrate; NS train; wave; MHD) and read after it: every kernel of that
-path must have launched in its window. Then one JSON line of kernel
-results, the card's name and power limit, and as the last line
+calibrate; NS train; wave; MHD; each scaling shape; each flat family) and
+read after it: every kernel of that path must have launched in its window.
+Then one JSON line of kernel results, the card's name and power limit, and
+as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises, so the script exits non-zero without that line; it
 also refuses to run where CUDA is unavailable. Data is made from seeds;
@@ -95,6 +113,10 @@ WAVE = dict(width=32, modes=16, nvar=1, nx=64, ny=64, rollout=1100, batch=50,
             res_shape=(1000, 20, 64, 64))
 MHD = dict(width=16, modes=8, nvar=6, nx=128, ny=128, rollout=200, batch=5,
            res_shape=(100, 6, 20, 128, 128))
+# cppre's grid-scaling shapes (scripts/bench_scaling.py:37-42, :126, :152),
+# for the chunked K3 beside K1
+SCALING = {"ns": (12, 3, 21, 512, 512), "mhd": (25, 6, 21, 256, 256),
+           "wave": (12, 26, 512, 512)}
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bandwidth and
 # float32 outside the tensor cores. A bound is the larger of bytes / HBM
@@ -104,8 +126,9 @@ HBM_BYTES_PER_S, F32_FLOPS_PER_S = 3.35e12, 67e12
 # five terms each: 45 adds and multiplies, cppre_torch/ops/kernels/
 # stencil_kernels.py::_ns_momentum_math)
 NS_RES_FLOPS = 45
+NS_FIELDS = 3
 # flops of each MHD residual per interior cell (the differences it takes,
-# then its terms; cppre_torch/csrc/stencil_kernels.cu, struct Mhd), and the
+# then its terms; cppre_torch/csrc/stencil_cells.cuh, struct Mhd), and the
 # fields (of rho, u, v, p, Bx, By) it reads
 MHD_RES_FLOPS = {"continuity": 13, "momentum": 46, "energy": 40, "induction": 27, "gauss": 3}
 MHD_FIELDS = {"continuity": 3, "momentum": 6, "energy": 6, "induction": 4, "gauss": 2}
@@ -119,6 +142,10 @@ KERNEL_INFO = {
     "K7": ("cppre_torch/csrc/fno_block_bwd.cu", "cppre/ops/pallas/fno_block.py:650"),
     "K8": ("cppre_torch/csrc/stencil_kernels.cu", "cppre/ops/pallas/stencil_kernels.py:80"),
     "K9": ("cppre_torch/csrc/stencil_kernels.cu", "cppre/ops/pallas/stencil_kernels.py:643"),
+    "K3": ("cppre_torch/csrc/stencil_kernels.cu", "cppre/ops/pallas/stencil_kernels.py:844"),
+    "K10": ("cppre_torch/csrc/flat_kernels.cu", "cppre/ops/pallas/flat_kernels.py:166"),
+    "K11": ("cppre_torch/csrc/flat_kernels.cu", "cppre/ops/pallas/flat_kernels.py:220"),
+    "K12": ("cppre_torch/csrc/flat_kernels.cu", "cppre/ops/pallas/flat_kernels.py:248"),
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
@@ -126,6 +153,8 @@ PATH_KERNELS = {
     "ns-train": ("K2", "K4", "K5", "K6", "K7"),
     "wave": ("K1", "K4", "K5", "K6", "K7", "K8"),
     "mhd": ("K1", "K2", "K4", "K5", "K6", "K7", "K9"),
+    "scaling": ("K1", "K3"),
+    "flat": ("K10", "K11", "K12"),
 }
 
 
@@ -881,6 +910,276 @@ def phase_family(family, device):
     return counts
 
 
+def _wave_composite_kernel():
+    """cppre's scaling-study wave kernel (scripts/bench_scaling.py:152-156):
+    D_tt - 0.25 D_xxyy, 7 taps."""
+    from cppre_torch.ops.stencils import embed_kernel_3d, stencil_2d
+
+    lap = np.asarray(stencil_2d(2))
+    return np.asarray(embed_kernel_3d(lap, 2) - 0.25 * embed_kernel_3d(lap, 0), np.float32)
+
+
+def phase_scaling(results, device):
+    """K3 at cppre's grid-scaling shapes, through the explicit chunked entry
+    and the routed scores + calibrate (the main path, one window per
+    instance), then held against its plain version (1e-5 of max), against K1
+    (bit for bit, the centred sum of squares too), at t_block 1, 2 and 5
+    (bit for bit), and the routed qhat against the plain route's (1e-3).
+    Times K3, K1 and plain. Returns {window: launch counts}."""
+    import torch
+    from cppre_torch.cp import calibrate
+    from cppre_torch.ops import kernels as K
+    from cppre_torch.ops.kernels import stencil_kernels as sk
+
+    windows = {}
+    kern = _wave_composite_kernel()
+    n_taps = int(np.count_nonzero(kern))
+    args = (DT, DX, DY, NU)
+    for family, shape in SCALING.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        truth, pred = device_fields(shape, SEED + 40, device, density=family == "mhd")
+        if family == "ns":
+            res, t5, p5 = sk._ns_cell(*args), truth, pred
+            chunked = lambda tb=5: K.ns_joint_cp_diff_stats_chunked(truth, pred, *args, t_block=tb)
+            plain = lambda: K.ns_joint_cp_diff_stats_chunked_plain(truth, pred, *args)
+            routed = lambda: K.ns_joint_cp_scores_fused(truth, pred, *args, eps=EPS)
+            routed_plain = lambda: K.ns_joint_cp_scores_plain(truth, pred, *args, eps=EPS)
+            in_bytes, flops = nbytes(truth, pred), 2 * NS_RES_FLOPS + 4
+        elif family == "mhd":
+            res, t5, p5 = sk._mhd_cell("induction"), truth, pred
+            chunked = lambda tb=5: K.mhd_joint_cp_diff_stats_chunked(truth, pred, t_block=tb)
+            plain = lambda: K.mhd_joint_cp_diff_stats_chunked_plain(truth, pred)
+            routed = lambda: K.mhd_induction_joint_cp_scores_fused(truth, pred, eps=EPS)
+            routed_plain = lambda: K.mhd_induction_joint_cp_scores_plain(truth, pred, eps=EPS)
+            in_bytes = 2 * MHD_FIELDS["induction"] * nbytes(truth) // 6
+            flops = 2 * MHD_RES_FLOPS["induction"] + 1 + 4
+        else:
+            res, t5, p5 = sk._taps_cell(kern), truth[:, None], pred[:, None]
+            chunked = lambda tb=5: K.wave_joint_cp_diff_stats_chunked(truth, pred, kern,
+                                                                      t_block=tb)
+            plain = lambda: K.wave_joint_cp_diff_stats_chunked_plain(truth, pred, kern)
+            routed = lambda: K.wave_joint_cp_scores_fused(truth, pred, kern, eps=EPS)
+            routed_plain = lambda: K.wave_joint_cp_scores_plain(truth, pred, kern, eps=EPS)
+            in_bytes, flops = nbytes(truth, pred), 2 * (2 * n_taps - 1) + 4
+        bs = shape[0]
+        route = K.routing_decision(tuple(t5.shape))
+
+        # the main path: the explicit chunked entry, the routed scores, calibrate
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = chunked()
+        qhat = calibrate(routed(), bs, ALPHA)
+        torch.cuda.synchronize()
+        t_path = time.perf_counter() - t0
+        window = f"scaling-{family}"
+        windows[window] = K.launch_counts()
+        check_path("scaling", windows[window])
+
+        ref = plain()
+        err, rel = compare(f"K3 {family} diff", got[0], ref[0], 1e-5)
+        compare(f"K3 {family} sum", got[1], ref[1], 1e-5)
+        compare(f"K3 {family} sumsq", got[2], ref[2], 1e-5)
+        del ref
+        k1 = sk._joint_cp_diff_stats(t5, p5, res, centred=True)
+        k3 = sk._joint_cp_diff_stats_chunked(t5, p5, res, centred=True)
+        same_bits(f"K3 vs K1 {family} (diff, sum, sumsq, centred)", k1, k3)
+        del k1, k3
+        for tb in (1, 2):
+            same_bits(f"K3 {family} t_block={tb} vs 5", got, chunked(tb))
+        q_plain = calibrate(routed_plain(), bs, ALPHA)
+        _, q_rel = compare(f"scaling {family} routed qhat", qhat, q_plain, 1e-3)
+        out_bytes = nbytes(*got)
+        cells = got[0].numel()
+        results[("K3", window)] = dict(
+            max_abs_err=err, rel_err=rel, bound=bound(in_bytes + out_bytes, flops * cells),
+            ms=cuda_ms(lambda: chunked()), plain_ms=cuda_ms(plain))
+        # K1, which the routed scores launched, on the same inputs (its bits
+        # are K3's, so are its errors against the plain version)
+        results[("K1", window)] = dict(
+            results[("K3", window)],
+            ms=cuda_ms(lambda: sk._joint_cp_diff_stats(t5, p5, res)))
+        report(results, "K3", window, shape=json.dumps(list(shape)), route=route,
+               k1_ms=f"{results[('K1', window)]['ms']:.4f}", k3_vs_k1_bitwise=True,
+               t_blocks_bitwise="1,2,5",
+               t_block_run=sk._chunk_t_block(5, t5.shape[1], t5.shape[2] - 2),
+               qhat=f"{float(qhat):.6e}", qhat_vs_plain=f"{q_rel:.3e}",
+               path_s=f"{t_path:.3f}", peak_gb=f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f}",
+               launches=json.dumps(windows[window], separators=(",", ":")))
+        del truth, pred, t5, p5, got
+
+    # K1 against K3 at the flagship K1 shapes too: the other half of the
+    # measurement behind routing_decision
+    flagship = {"ns": ((100, 3, 21, 100, 100), sk._ns_cell(*args)),
+                "wave": ((WAVE["res_shape"][0], 1) + WAVE["res_shape"][1:], sk._taps_cell(kern)),
+                "mhd": (MHD["res_shape"], sk._mhd_cell("induction"))}
+    for family, (shape, res) in flagship.items():
+        torch.cuda.empty_cache()
+        truth, pred = device_fields(shape, SEED + 41, device, density=family == "mhd")
+        same_bits(f"K3 vs K1 {family} {list(shape)}",
+                  sk._joint_cp_diff_stats(truth, pred, res)[:3],
+                  sk._joint_cp_diff_stats_chunked(truth, pred, res)[:3])
+        say("route", family=family, shape=json.dumps(list(shape)),
+            k1_ms=f"{cuda_ms(lambda: sk._joint_cp_diff_stats(truth, pred, res)):.4f}",
+            k3_ms=f"{cuda_ms(lambda: sk._joint_cp_diff_stats_chunked(truth, pred, res)):.4f}",
+            k3_vs_k1_bitwise=True, routing_decision=K.routing_decision(shape))
+        del truth, pred
+    torch.cuda.empty_cache()
+    return windows
+
+
+class forced_flat_route:
+    """Within the block, `_scores_flat` takes `route` whatever
+    `flat_routing_decision` says (cppre's test forces the two-kernel route
+    the same way, through its VMEM estimate)."""
+
+    def __init__(self, route):
+        self.route = route
+
+    def __enter__(self):
+        from cppre_torch.ops.kernels import flat_kernels as fk
+
+        self.saved = fk.flat_routing_decision
+        fk.flat_routing_decision = lambda shape: self.route
+
+    def __exit__(self, *exc):
+        from cppre_torch.ops.kernels import flat_kernels as fk
+
+        fk.flat_routing_decision = self.saved
+
+
+def phase_flat(results, device):
+    """K10, K11 and K12 at the shapes where K1 is timed: NS [100,3,21,100,100],
+    wave [1000,20,64,64] (the wave experiment's composite kernel and a
+    3x3x3 kernel with a corner tap), MHD [100,6,20,128,128] (all five
+    equations). The main path (one window per family): the flat scores and
+    calibrate, by `flat_routing_decision` and again through the other route.
+    Then K10 against its plain version over the whole window (1e-5 of max),
+    K11 then K12 against K10 (bit for bit), the flat qhat against the plain
+    flat qhat (1e-3). Times K10, K11 + K12 and plain. Returns {window: launch
+    counts}."""
+    import torch
+    from cppre_torch.cp import calibrate
+    from cppre_torch.experiments import wave
+    from cppre_torch.ops import kernels as K
+    from cppre_torch.ops.kernels import flat_kernels as fk
+    from cppre_torch.ops.kernels import stencil_kernels as sk
+    from cppre_torch.residuals import PRE_Wave
+    from cppre_torch.solvers import Wave2D
+
+    c = wave.CONFIG
+    sim = Wave2D(c["Nx"], c["x_min"], c["x_max"], c["tend"], c["c"], device=device)
+    wave_kern = np.asarray(PRE_Wave(sim.dt * c["t_slice"], sim.dx, c["c"]).D.kernel)
+    corner = np.array(wave_kern, np.float32)
+    corner[1, 0, 0] = corner[1, 2, 2] = 0.125              # a D_xy cross term
+    args = (DT, DX, DY, NU)
+    cases = {"ns": [("ns", (100, 3, 21, 100, 100), None)],
+             "wave": [("wave", WAVE["res_shape"], wave_kern),
+                      ("wave-corner", WAVE["res_shape"], corner)],
+             "mhd": [(f"mhd-{eq}", MHD["res_shape"], eq) for eq in K.MHD_EQUATIONS]}
+    windows = {}
+    for family, variants in cases.items():
+        torch.cuda.empty_cache()
+        shape = variants[0][1]
+        truth, pred = device_fields(shape, SEED + 50, device, density=family == "mhd")
+        t5, p5 = (truth[:, None], pred[:, None]) if family == "wave" else (truth, pred)
+        bs, nvar, nt, nx, ny = t5.shape
+        entries = {}
+        for name, _, arg in variants:
+            if family == "ns":
+                entries[name] = (sk._ns_cell(*args), ny,
+                                 lambda: K.ns_joint_cp_scores_flat(truth, pred, *args, eps=EPS),
+                                 lambda: K.ns_joint_cp_scores_flat_plain(truth, pred, *args,
+                                                                         eps=EPS))
+            elif family == "wave":
+                entries[name] = (sk._taps_cell(arg), fk._composite_off(arg, ny),
+                                 lambda k=arg: K.wave_joint_cp_scores_flat(truth, pred, k, eps=EPS),
+                                 lambda k=arg: K.wave_joint_cp_scores_flat_plain(truth, pred, k,
+                                                                                 eps=EPS))
+            else:
+                entries[name] = (sk._mhd_cell(arg), ny,
+                                 lambda e=arg: K.mhd_joint_cp_scores_flat(truth, pred, e, eps=EPS),
+                                 lambda e=arg: K.mhd_joint_cp_scores_flat_plain(truth, pred, e,
+                                                                                eps=EPS))
+        # the main path: each variant's flat scores and calibrate, by the
+        # routing rule and through the other route
+        route = K.flat_routing_decision(tuple(t5.shape))
+        other = "two_kernel" if route == "paired" else "paired"
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qhats = {}
+        for name, (_, _, flat, _) in entries.items():
+            qhats[name] = calibrate(flat(), bs, ALPHA)
+            with forced_flat_route(other):
+                qhats[name + "-other"] = calibrate(flat(), bs, ALPHA)
+        torch.cuda.synchronize()
+        t_path = time.perf_counter() - t0
+        window = f"flat-{family}"
+        windows[window] = K.launch_counts()
+        check_path("flat", windows[window])
+
+        tf, pf = t5.reshape(bs, nvar, nt, nx * ny), p5.reshape(bs, nvar, nt, nx * ny)
+        for name, (res, off, flat, flat_plain) in entries.items():
+            same_bits(f"{name} flat qhat, route {route} vs {other}", qhats[name],
+                      qhats[name + "-other"])
+            _, q_rel = compare(f"{name} flat qhat", qhats[name],
+                               calibrate(flat_plain(), bs, ALPHA), 1e-3)
+            got = fk._flat_paired_absdiff_stats(tf, pf, res, ny, off)
+            ref = fk._flat_paired_absdiff_stats_plain(tf, pf, res, ny, off)
+            err, rel = compare(f"K10 {name} |d|", got[0], ref[0], 1e-5)
+            compare(f"K10 {name} sum", got[1], ref[1], 1e-5)
+            compare(f"K10 {name} sumsq", got[2], ref[2], 1e-5)
+            del ref
+            r = fk._flat_residual_kernel(tf, res, ny, off)
+            r_ref = fk._flat_residual_plain(tf, res, ny, off)
+            err11, rel11 = compare(f"K11 {name}", r, r_ref, 1e-5)
+            del r_ref
+            two = fk._flat_absdiff_stats_from_res(pf, r, res, ny, off)
+            same_bits(f"K11 then K12 vs K10 {name}", two, got)
+            del two
+            if family == "ns":
+                fields, flops = NS_FIELDS, NS_RES_FLOPS
+            elif family == "wave":
+                fields, flops = 1, 2 * int(np.count_nonzero(res.kernel)) - 1
+            else:
+                fields, flops = MHD_FIELDS[name[4:]], MHD_RES_FLOPS[name[4:]]
+            in_b = fields * nbytes(truth) // nvar           # one tensor's fields
+            cells = got[0].numel()
+            key = window if name in ("ns", "wave", "mhd-induction") else f"flat-{name}"
+            two_ms = cuda_ms(lambda: fk._flat_absdiff_stats_from_res(
+                pf, fk._flat_residual_kernel(tf, res, ny, off), res, ny, off))
+            results[("K10", key)] = dict(
+                max_abs_err=err, rel_err=rel,
+                bound=bound(2 * in_b + nbytes(*got), (2 * flops + 1 + 4) * cells),
+                ms=cuda_ms(lambda: fk._flat_paired_absdiff_stats(tf, pf, res, ny, off)),
+                plain_ms=cuda_ms(lambda: fk._flat_paired_absdiff_stats_plain(tf, pf, res, ny,
+                                                                             off)))
+            results[("K11", key)] = dict(
+                max_abs_err=err11, rel_err=rel11, bound=bound(in_b + nbytes(r), flops * cells),
+                ms=cuda_ms(lambda: fk._flat_residual_kernel(tf, res, ny, off)),
+                plain_ms=cuda_ms(lambda: fk._flat_residual_plain(tf, res, ny, off)))
+            results[("K12", key)] = dict(
+                max_abs_err=err, rel_err=rel,
+                bound=bound(in_b + nbytes(r, *got), (flops + 1 + 4) * cells),
+                ms=cuda_ms(lambda: fk._flat_absdiff_stats_from_res(pf, r, res, ny, off)),
+                plain_ms=cuda_ms(lambda: fk._flat_absdiff_stats_from_res_plain(pf, r, res, ny,
+                                                                               off)))
+            report(results, "K10", key, shape=json.dumps(list(t5.shape)), off=off,
+                   route=route, two_kernel_ms=f"{two_ms:.4f}", k11_k12_vs_k10_bitwise=True,
+                   qhat=f"{float(qhats[name]):.6e}", qhat_vs_plain=f"{q_rel:.3e}",
+                   qhat_routes_bitwise=True)
+            report(results, "K11", key)
+            report(results, "K12", key)
+            del got, r
+        say("flat", family=family, path_s=f"{t_path:.3f}",
+            launches=json.dumps(windows[window], separators=(",", ":")))
+        del truth, pred, t5, p5, tf, pf
+    torch.cuda.empty_cache()
+    return windows
+
+
 def main():
     import torch
 
@@ -1006,6 +1305,8 @@ def main():
     windows = {"ns": {k: serve_counts[k] + train_counts[k] for k in serve_counts},
                "wave": phase_family("wave", device),
                "mhd": phase_family("mhd", device)}
+    windows.update(phase_scaling(results, device))
+    windows.update(phase_flat(results, device))
 
     kernels = []
     names = {("K1", "ns"): "ns_joint_cp_diff_stats", ("K2", "ns"): "ns_momentum_residual_fused",
@@ -1013,7 +1314,17 @@ def main():
              ("K2", "mhd"): "mhd_residual_fused", ("K8", "wave"): "wave_residual_fused",
              ("K9", "mhd"): "mhd_induction_joint_cp_scores_fused(single_pass=True)",
              "K4": "fno_block2d_fused", "K5": "projection2d_fused",
-             "K6": "fno_block2d_bwd_fused", "K7": "projection2d_bwd_fused"}
+             "K6": "fno_block2d_bwd_fused", "K7": "projection2d_bwd_fused",
+             ("K3", "scaling-ns"): "ns_joint_cp_diff_stats_chunked",
+             ("K3", "scaling-mhd"): "mhd_joint_cp_diff_stats_chunked",
+             ("K3", "scaling-wave"): "wave_joint_cp_diff_stats_chunked",
+             ("K1", "scaling-ns"): "ns_joint_cp_diff_stats",
+             ("K1", "scaling-mhd"): "mhd_joint_cp_diff_stats",
+             ("K1", "scaling-wave"): "wave_joint_cp_diff_stats",
+             ("K10", "flat-ns"): "ns_joint_cp_scores_flat",
+             ("K10", "flat-wave"): "wave_joint_cp_scores_flat",
+             ("K10", "flat-mhd"): "mhd_joint_cp_scores_flat",
+             "K11": "_flat_residual_kernel", "K12": "_flat_absdiff_stats_from_res"}
     for (kid, family), r in results.items():
         if family not in windows:       # variants timed beside a path's instance
             continue

@@ -1,9 +1,11 @@
 // PRE stencil kernels for Hopper (sm_90a): the residual alone (K2, and K8
 // for a constant tap table), the paired joint-CP diff plus cross-batch
-// moments (K1), and the joint-CP scores in one launch with no staged diff
-// (K9). Every kernel body is a template over a *cell*: the function that
-// evaluates one residual at one output cell of one sample. K1, K2 and K9
-// call the very same cell, so the diff K9 scores is the diff K1 stores.
+// moments (K1) and its time-chunked, shared-memory-staged twin (K3), and the
+// joint-CP scores in one launch with no staged diff (K9). Every kernel body
+// is a template over a *cell* (stencil_cells.cuh): the function that
+// evaluates one residual at one output cell of one sample. K1, K2, K3 and K9
+// call the very same cell, so the diff K9 scores is the diff K1 stores, and
+// K3's diff, sum and sum of squares are K1's.
 //
 // Replaces the Pallas kernels of cppre/ops/pallas/stencil_kernels.py:
 //   K2  _batched_residual_fused: per sample, the interior residual,
@@ -16,29 +18,45 @@
 //       per-cell sum and sum of squares over the batch, and on request the
 //       centred sum of squares (see below). Cells: NS momentum, MHD
 //       induction (and any other MHD equation), the tap table.
+//   K3  _joint_cp_diff_stats_chunked: K1's outputs for 3-wide cells, with
+//       each block's window of the inputs staged in shared memory (below).
 //   K9  _joint_cp_scores_single_pass: scores[b] = max over cells of
 //       |diff| / (std(diff over the batch) + eps), no diff tensor in HBM.
 //
 // What bounds them on an H100: memory. A cell reads at most 25 field taps
 // (six MHD fields) and does well under 100 flops, far below the ~20
 // flops/byte at which the card stops being bandwidth-bound. The TPU kernels
-// held one whole trajectory in VMEM; here neighbouring threads read
-// neighbouring y addresses (coalesced) and a tap's reuse by adjacent cells
-// is served by L1/L2.
+// held one whole trajectory in VMEM; here K1, K2, K8 and K9 let neighbouring
+// threads read neighbouring y addresses (coalesced) and leave a tap's reuse
+// by adjacent cells to L1/L2.
 //
-// Cross-batch moments (K1, K9): the TPU kernel carries sum/sumsq from one
-// grid step to the next, relying on the TPU running its grid in order. CUDA
-// blocks run in no order, so each thread owns one interior cell and loops
-// over the batch b = 0..BS-1 itself, accumulating in f32 registers in that
-// fixed order: no atomics, bit-stable, independent of the launch shape.
+// Cross-batch moments (K1, K3, K9): the TPU kernel carries sum/sumsq from
+// one grid step to the next, relying on the TPU running its grid in order.
+// CUDA blocks run in no order, so each thread owns its interior cells and
+// loops over the batch b = 0..BS-1 itself, accumulating in f32 registers in
+// that fixed order: no atomics, bit-stable, independent of the launch shape.
 //
 // The modulation std is taken from the centred sum of squares,
 // sum_b (d_b - mean)^2 with mean = sum / n, in a second pass over the batch:
 // the one-pass sumsq / n - mean^2 of the JAX package cancels when a cell's
 // diff barely varies over the batch (std / |mean| below ~1e-3 in float32),
-// and those cells are where the sup-norm score peaks. K1 forms it on
-// request by re-reading the diff it staged (recomputing it from the inputs
-// when the staged diff is bfloat16).
+// and those cells are where the sup-norm score peaks. K1 and K3 form it on
+// request by re-reading the diff they staged (K1 recomputes it from the
+// inputs when the staged diff is bfloat16).
+//
+// K3: the TPU kernel keeps each trajectory in HBM and DMAs overlapping time
+// chunks (t_block interior frames plus a one-frame halo each side) into
+// VMEM, double-buffered, because a whole trajectory at 512^2 does not fit
+// VMEM. Here a block owns t_block interior frames of an 8 x 32 tile of the
+// interior, and walks the batch in sample order: for each sample it stages
+// the halo'd (t_block + 2) x 10 x 34 window of the variables its cell reads,
+// truth and prediction, in dynamic shared memory with cp.async, sample b + 1
+// loading while sample b computes (the TPU's two DMA slots). Each thread
+// owns one (x, y) column of the tile, t_block cells, and keeps their sums in
+// registers across the batch. The window costs (t_block + 2) / t_block x
+// 1.25 x 1.06 re-reads of each input from L2; t_block is what the caller
+// asks for, cut to what fits 227 KB of shared memory (the wrapper's
+// `_chunk_t_block`), as the TPU's is cut to fit VMEM.
 //
 // K9: the TPU kernel stashes every diff in VMEM between its two phases. At
 // the MHD configuration's 128^2 grid that stash is ~114 MB, against 228 KB
@@ -51,149 +69,15 @@
 // and order-free, so the scores are bit-stable). K9 reads the inputs three
 // times and writes no diff; its arithmetic is K1's plus the epilogue's,
 // operation for operation, so its scores are the two-pass route's.
-//
-// Term order follows the JAX math so the plain-PyTorch parity is tight; the
-// tap table accumulates with explicit round-to-nearest multiplies and adds
-// (no FMA contraction), the arithmetic of `stencil_shift_add`.
 
 #include <cuda_bf16.h>
 #include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
+#include "stencil_cells.cuh"
 
 namespace {
-
-// Extents and strides of one sample [Nvar, Nt, Nx, Ny] and of the output.
-struct Geom {
-    int nt, nx, ny;      // input extents
-    int ot, ox, oy;      // output extents: N - k + 1 on each axis
-    long long plane;     // nx * ny
-    long long field;     // nt * nx * ny: one variable
-    long long sample;    // nvar * field
-};
-
-// Index of the centre of a 3-wide stencil at output cell (t, x, y).
-__device__ __forceinline__ long long centre(const Geom& g, int t, int x, int y) {
-    return (long long)(t + 1) * g.plane + (long long)(x + 1) * g.ny + (y + 1);
-}
-
-// The centre value and the three centred differences of one field.
-struct D3 {
-    float c, t, x, y;
-};
-
-__device__ __forceinline__ D3 d3(const float* __restrict__ a, long long i0, const Geom& g) {
-    D3 r;
-    r.c = __ldg(a + i0);
-    r.t = __ldg(a + i0 + g.plane) - __ldg(a + i0 - g.plane);
-    r.x = __ldg(a + i0 + g.ny) - __ldg(a + i0 - g.ny);
-    r.y = __ldg(a + i0 + 1) - __ldg(a + i0 - 1);
-    return r;
-}
-
-// NS momentum residual of (u, v, p), _ns_momentum_math.
-struct NsMomentum {
-    float cxy;  // dx * dy
-    float cty;  // dt * dy
-    float ctx;  // dt * dx
-    float nu;
-    float dt;
-
-    __device__ __forceinline__ float operator()(const float* __restrict__ f, const Geom& g,
-                                                int t, int x, int y) const {
-        const float* __restrict__ u = f;
-        const float* __restrict__ v = f + g.field;
-        const float* __restrict__ p = f + 2 * g.field;
-        const long long i0 = centre(g, t, x, y);
-        const long long st = g.plane, sx = g.ny;
-
-        const float uc = __ldg(u + i0), vc = __ldg(v + i0);
-        const float u_t = __ldg(u + i0 + st) - __ldg(u + i0 - st);
-        const float u_xp = __ldg(u + i0 + sx), u_xm = __ldg(u + i0 - sx);
-        const float u_yp = __ldg(u + i0 + 1), u_ym = __ldg(u + i0 - 1);
-        const float v_t = __ldg(v + i0 + st) - __ldg(v + i0 - st);
-        const float v_xp = __ldg(v + i0 + sx), v_xm = __ldg(v + i0 - sx);
-        const float v_yp = __ldg(v + i0 + 1), v_ym = __ldg(v + i0 - 1);
-        const float p_x = __ldg(p + i0 + sx) - __ldg(p + i0 - sx);
-        const float p_y = __ldg(p + i0 + 1) - __ldg(p + i0 - 1);
-
-        const float u_x = u_xp - u_xm, u_y = u_yp - u_ym;
-        const float v_x = v_xp - v_xm, v_y = v_yp - v_ym;
-        const float u_lap = u_xp + u_xm + u_yp + u_ym - 4.0f * uc;
-        const float v_lap = v_xp + v_xm + v_yp + v_ym - 4.0f * vc;
-
-        const float res_x = u_t * cxy + uc * u_x * cty + vc * u_y * ctx - nu * u_lap * dt
-                            + p_x * cty;
-        const float res_y = v_t * cxy + uc * v_x * ctx + vc * v_y * cty - nu * v_lap * dt
-                            + p_y * ctx;
-        return res_x + res_y;
-    }
-};
-
-// The selectable ideal-MHD residuals (_mhd_math) over the six fields
-// (rho, u, v, p, Bx, By); each reads only the fields its equation uses.
-enum Kind { kNsMomentum = 0, kContinuity, kMomentum, kEnergy, kInduction, kGauss, kTaps };
-
-constexpr float kGamma = (float)(5.0 / 3.0);
-constexpr float kGammaMinus2 = (float)(5.0 / 3.0 - 2.0);
-
-template <int EQ>
-struct Mhd {
-    __device__ __forceinline__ float operator()(const float* __restrict__ f, const Geom& g,
-                                                int t, int x, int y) const {
-        const long long i0 = centre(g, t, x, y);
-        auto F = [&](int var) { return d3(f + var * g.field, i0, g); };
-        if constexpr (EQ == kContinuity) {
-            const D3 rho = F(0), u = F(1), v = F(2);
-            return rho.t + u.c * rho.x + rho.c * u.x + v.c * rho.y + rho.c * v.y;
-        } else if constexpr (EQ == kMomentum) {
-            const D3 rho = F(0), u = F(1), v = F(2), p = F(3), bx = F(4), by = F(5);
-            const float inv_rho = 1.0f / rho.c;
-            const float res_x = u.t + u.c * u.x + inv_rho * p.x - 2.0f * (bx.c * inv_rho) * bx.x
-                                + v.c * u.y - (by.c * inv_rho) * bx.y - (bx.c * inv_rho) * by.y;
-            const float res_y = v.t + u.c * v.x + inv_rho * p.y - 2.0f * (by.c * inv_rho) * by.y
-                                + v.c * v.y - (by.c * inv_rho) * bx.x - (bx.c * inv_rho) * by.x;
-            return res_x + res_y;
-        } else if constexpr (EQ == kEnergy) {
-            const D3 rho = F(0), u = F(1), v = F(2), p = F(3), bx = F(4), by = F(5);
-            const float p_gas = p.c - 0.5f * (bx.c * bx.c + by.c * by.c);
-            return rho.t + u.c * p.x + v.c * p.y
-                   + kGammaMinus2 * (u.c * bx.c + v.c * by.c) * (bx.x + by.y)
-                   + (kGamma * p_gas + by.c * by.c) * u.x
-                   + (kGamma * p_gas + bx.c * bx.c) * v.y
-                   - bx.c * by.c * (u.y + v.x);
-        } else if constexpr (EQ == kInduction) {
-            const D3 u = F(1), v = F(2), bx = F(4), by = F(5);
-            const float res_x = bx.t - by.c * u.y + bx.c * v.y - v.c * bx.y + u.c * by.y;
-            const float res_y = by.t + by.c * u.x - bx.c * v.x - v.c * bx.x + u.c * by.x;
-            return res_x + res_y;
-        } else {  // kGauss
-            const D3 bx = F(4), by = F(5);
-            return bx.x + by.y;
-        }
-    }
-};
-
-// A constant stencil as a table of its non-zero taps, in the order of
-// `_taps` (itertools.product, zeros dropped): off[i] is the tap's linear
-// offset from the cell's (0, 0, 0) corner, w[i] its float32 weight.
-struct Taps {
-    const int* __restrict__ off;
-    const float* __restrict__ w;
-    int n;
-
-    __device__ __forceinline__ float operator()(const float* __restrict__ f, const Geom& g,
-                                                int t, int x, int y) const {
-        const float* __restrict__ base = f + (long long)t * g.plane + (long long)x * g.ny + y;
-        float acc = 0.0f;
-        for (int i = 0; i < n; ++i) {
-            const float term = __fmul_rn(__ldg(base + __ldg(off + i)), __ldg(w + i));
-            acc = i == 0 ? term : __fadd_rn(acc, term);
-        }
-        return acc;
-    }
-};
 
 // ---- K2 / K8: the residual ---------------------------------------------------
 // grid (BS * ot, ceil(ox / blockDim.y)); threads along y.
@@ -273,6 +157,139 @@ __global__ void diff_stats_kernel(const float* __restrict__ truth, const float* 
     }
 }
 
+// ---- K3: diff and moments, time-chunked through shared memory --------------
+constexpr int kChunkTX = 8;                          // interior rows (x) of a tile
+constexpr int kChunkTY = 32;                         // interior columns (y) of a tile
+constexpr int kChunkThreads = kChunkTX * kChunkTY;   // one (x, y) column per thread
+constexpr int kChunkMaxTb = 8;                       // frames a thread keeps sums for
+constexpr int kWinX = kChunkTX + 2, kWinY = kChunkTY + 2, kWinPlane = kWinX * kWinY;
+constexpr size_t kMaxSmem = 232448;                  // 227 KB, a block's most on sm_90
+
+// Dynamic shared memory of K3: 2 slots (double buffer) x 2 tensors (truth,
+// prediction) x nvar variables x (tb + 2) frames of the window.
+size_t chunk_smem_bytes(int nvar, int tb) {
+    return sizeof(float) * 4 * (size_t)nvar * (size_t)(tb + 2) * kWinPlane;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Issue the copies of one sample's window: the variables in `vars`, frames
+// t0 .. t0 + nf - 1, rows x0 .. x0 + kWinX - 1 and columns y0 .. y0 + kWinY - 1
+// of the [nvar, nt, nx, ny] sample at src, into the window at w (variable v
+// at v * wfield). Positions past the grid's edge stay unset: only cells
+// outside the interior, whose results are dropped, read them.
+__device__ __forceinline__ void stage_window(float* w, long long wfield, const float* src,
+                                             const Geom& g, unsigned vars, int nvar, int t0,
+                                             int nf, int x0, int y0) {
+    const int n = nf * kWinPlane;
+    for (int v = 0; v < nvar; ++v) {
+        if (!((vars >> v) & 1u)) continue;
+        const float* s = src + v * g.field + (long long)t0 * g.plane;
+        float* d = w + v * wfield;
+        for (int i = threadIdx.x; i < n; i += blockDim.x) {
+            const int f = i / kWinPlane, r = i - f * kWinPlane;
+            const int wx = r / kWinY, wy = r - wx * kWinY;
+            const int gx = x0 + wx, gy = y0 + wy;
+            if (gx < g.nx && gy < g.ny) {
+                cp_async4(d + i, s + (long long)f * g.plane + (long long)gx * g.ny + gy);
+            }
+        }
+    }
+}
+
+// grid (ceil(oy / kChunkTY), ceil(ox / kChunkTX), ceil(ot / tb)) of
+// kChunkThreads threads. Block (by, bx, bz) owns the interior cells
+// (t0 + k, x0 + lx, y0 + ly), t0 = bz * tb, k < tb_c; thread (lx, ly) owns
+// one column of them. Sample b + 1's window loads while sample b computes.
+// m2 (may be null) receives the centred sum of squares.
+template <class Cell>
+__global__ void __launch_bounds__(kChunkThreads)
+diff_stats_chunked_kernel(const float* __restrict__ truth, const float* __restrict__ pred,
+                          float* diff, float* __restrict__ sum, float* __restrict__ sumsq,
+                          float* __restrict__ m2, int bs, Geom g, Cell cell, int tb,
+                          unsigned vars, int nvar) {
+    extern __shared__ float smem[];
+    const int y0 = blockIdx.x * kChunkTY, x0 = blockIdx.y * kChunkTX, t0 = blockIdx.z * tb;
+    const int tb_c = min(tb, g.ot - t0);
+    const int lx = threadIdx.x / kChunkTY, ly = threadIdx.x % kChunkTY;
+    const int x = x0 + lx, y = y0 + ly;
+    const bool live = x < g.ox && y < g.oy;
+    const long long ncell = (long long)g.ot * g.ox * g.oy;
+
+    // the window's strides, as the cell reads them: one slot of tb + 2
+    // frames per variable; (slot s, tensor k) at smem + (2 s + k) w.sample
+    Geom w = g;
+    w.ny = kWinY;
+    w.plane = kWinPlane;
+    w.field = (long long)(tb + 2) * kWinPlane;
+    w.sample = (long long)nvar * w.field;
+
+    auto stage = [&](int b, int slot) {
+        const long long off = (long long)b * g.sample;
+        float* base = smem + 2 * slot * w.sample;
+        stage_window(base, w.field, truth + off, g, vars, nvar, t0, tb_c + 2, x0, y0);
+        stage_window(base + w.sample, w.field, pred + off, g, vars, nvar, t0, tb_c + 2, x0, y0);
+        cp_async_commit();
+    };
+
+    float s[kChunkMaxTb], q[kChunkMaxTb];
+#pragma unroll
+    for (int k = 0; k < kChunkMaxTb; ++k) s[k] = q[k] = 0.0f;
+
+    stage(0, 0);
+    for (int b = 0; b < bs; ++b) {
+        const int slot = b & 1;
+        if (b + 1 < bs) {
+            stage(b + 1, slot ^ 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (live) {
+            const float* wt = smem + 2 * slot * w.sample;
+            const float* wp = wt + w.sample;
+#pragma unroll
+            for (int k = 0; k < kChunkMaxTb; ++k) {
+                if (k < tb_c) {
+                    const float d = cell(wt, w, k, lx, ly, FromShared())
+                                    - cell(wp, w, k, lx, ly, FromShared());
+                    diff[(long long)b * ncell + ((long long)(t0 + k) * g.ox + x) * g.oy + y] = d;
+                    s[k] += d;
+                    q[k] += d * d;
+                }
+            }
+        }
+        __syncthreads();  // every read of this slot is done before it is refilled
+    }
+    if (!live) return;
+#pragma unroll
+    for (int k = 0; k < kChunkMaxTb; ++k) {
+        if (k < tb_c) {
+            const long long id = ((long long)(t0 + k) * g.ox + x) * g.oy + y;
+            sum[id] = s[k];
+            sumsq[id] = q[k];
+            if (m2 != nullptr) {
+                // this thread's own stores, read back (plain loads), as K1 does
+                const float mean = batch_mean(s[k], bs);
+                float acc = 0.0f;
+                for (int b = 0; b < bs; ++b) acc = centred_step(acc, diff[(long long)b * ncell + id], mean);
+                m2[id] = acc;
+            }
+        }
+    }
+}
+
 // ---- K9: single-pass scores ----------------------------------------------------
 // A maximum that keeps a NaN, as torch.amax does.
 __device__ __forceinline__ float nan_max(float a, float b) { return (a != a || a > b) ? a : b; }
@@ -333,49 +350,11 @@ scores_single_pass_kernel(const float* __restrict__ truth, const float* __restri
 }
 
 // ---- host side ---------------------------------------------------------------
-Geom make_geom(int nvar, int nt, int nx, int ny, int k) {
-    Geom g;
-    g.nt = nt;
-    g.nx = nx;
-    g.ny = ny;
-    g.ot = nt - k + 1;
-    g.ox = nx - k + 1;
-    g.oy = ny - k + 1;
-    g.plane = (long long)nx * ny;
-    g.field = (long long)nt * g.plane;
-    g.sample = (long long)nvar * g.field;
-    return g;
-}
-
 // Threads along y: the output row rounded up to a warp, at most 128; rows
 // of x fill a block of 256 threads.
 dim3 row_block(int oy) {
     const int ty = oy >= 128 ? 128 : ((oy + 31) / 32) * 32;
     return dim3(ty, 256 / ty);
-}
-
-struct CellArgs {
-    int kind;
-    float cxy, cty, ctx, nu, dt;
-    const void* tap_off;
-    const void* tap_w;
-    int ntaps;
-};
-
-// Call launch(cell) with the cell that `a.kind` names.
-template <class Launch>
-int with_cell(const CellArgs& a, const Launch& launch) {
-    switch (a.kind) {
-        case kNsMomentum: return launch(NsMomentum{a.cxy, a.cty, a.ctx, a.nu, a.dt});
-        case kContinuity: return launch(Mhd<kContinuity>{});
-        case kMomentum: return launch(Mhd<kMomentum>{});
-        case kEnergy: return launch(Mhd<kEnergy>{});
-        case kInduction: return launch(Mhd<kInduction>{});
-        case kGauss: return launch(Mhd<kGauss>{});
-        case kTaps:
-            return launch(Taps{(const int*)a.tap_off, (const float*)a.tap_w, a.ntaps});
-        default: return (int)cudaErrorInvalidValue;
-    }
 }
 
 struct ResidualLaunch {
@@ -418,6 +397,34 @@ struct DiffStatsLaunch {
             diff_stats_kernel<Cell, float><<<grid, block, 0, stream>>>(
                 truth, pred, (float*)diff, sum, sumsq, m2, bs, g, cell);
         }
+        return (int)cudaGetLastError();
+    }
+};
+
+struct ChunkedLaunch {
+    const float* truth;
+    const float* pred;
+    float* diff;
+    float* sum;
+    float* sumsq;
+    float* m2;
+    int bs;
+    Geom g;
+    int tb;
+    unsigned vars;
+    int nvar;
+    cudaStream_t stream;
+
+    template <class Cell>
+    int operator()(const Cell& cell) const {
+        const size_t bytes = chunk_smem_bytes(nvar, tb);
+        if (tb < 1 || tb > kChunkMaxTb || bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+        const cudaError_t e = allow_smem(diff_stats_chunked_kernel<Cell>, bytes);
+        if (e != cudaSuccess) return (int)e;
+        const dim3 grid((g.oy + kChunkTY - 1) / kChunkTY, (g.ox + kChunkTX - 1) / kChunkTX,
+                        (g.ot + tb - 1) / tb);
+        diff_stats_chunked_kernel<Cell><<<grid, kChunkThreads, bytes, stream>>>(
+            truth, pred, diff, sum, sumsq, m2, bs, g, cell, tb, vars, nvar);
         return (int)cudaGetLastError();
     }
 };
@@ -470,6 +477,23 @@ CPPRE_EXPORT int cppre_joint_cp_diff_stats(int kind, const void* truth, const vo
     return with_cell(a, DiffStatsLaunch{(const float*)truth, (const float*)pred, diff,
                                         diff_bf16, (float*)sum, (float*)sumsq, (float*)m2, bs,
                                         make_geom(nvar, nt, nx, ny, k), (cudaStream_t)stream});
+}
+
+// K3 for 3-wide cells (kinds 0-6; a tap table built for the window's
+// strides, frames of 10 x 34). t_block: interior frames per chunk, 1..8, such
+// that the window fits shared memory. m2 may be null.
+CPPRE_EXPORT int cppre_joint_cp_diff_stats_chunked(int kind, const void* truth, const void* pred,
+                                                   void* diff, void* sum, void* sumsq, void* m2,
+                                                   int bs, int nvar, int nt, int nx, int ny,
+                                                   int t_block, float cxy, float cty, float ctx,
+                                                   float nu, float dt, const void* tap_off,
+                                                   const void* tap_w, int ntaps, void* stream) {
+    const CellArgs a{kind, cxy, cty, ctx, nu, dt, tap_off, tap_w, ntaps};
+    const unsigned vars = nvar >= 32 ? cell_vars(kind) : cell_vars(kind) & ((1u << nvar) - 1u);
+    return with_cell(a, ChunkedLaunch{(const float*)truth, (const float*)pred, (float*)diff,
+                                      (float*)sum, (float*)sumsq, (float*)m2, bs,
+                                      make_geom(nvar, nt, nx, ny, 3), t_block, vars, nvar,
+                                      (cudaStream_t)stream});
 }
 
 CPPRE_EXPORT int cppre_joint_cp_scores_single_pass(int kind, const void* truth,

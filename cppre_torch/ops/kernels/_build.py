@@ -29,7 +29,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "library", "ptxas_report", "declare"
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "cppre_torch"
-SOURCES = ("stencil_kernels", "fno_block", "fno_block_bwd")
+SOURCES = ("stencil_kernels", "flat_kernels", "fno_block", "fno_block_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,5 +1,5 @@
-"""PRE stencil kernels: residuals (K2, K8), the joint-CP diff + moments (K1)
-and the single-pass joint-CP scores (K9).
+"""PRE stencil kernels: residuals (K2, K8), the joint-CP diff + moments (K1,
+and K3 time-chunked) and the single-pass joint-CP scores (K9).
 
 Port of `cppre/ops/pallas/stencil_kernels.py`, with its public names and
 signatures. One CUDA source (`csrc/stencil_kernels.cu`) holds the kernels,
@@ -21,9 +21,14 @@ plain PyTorch math, which is the plain version of every kernel it runs in.
   optionally stored as bfloat16 (`diff_dtype`; the moments always come
   from the float32 diff). Instances `ns_joint_cp_diff_stats`,
   `wave_joint_cp_diff_stats`, `mhd_joint_cp_diff_stats`.
+* K3 `_joint_cp_diff_stats_chunked`: K1's outputs for 3-wide cells, each
+  block's time chunk and spatial tile staged in shared memory and walked
+  over the batch in sample order, so its bits are K1's. Instances
+  `ns_/wave_/mhd_joint_cp_diff_stats_chunked` (the wave one for 3-wide
+  kernels only); `t_block` is cut to fit shared memory (`_chunk_t_block`).
 * The joint-CP scores [BS] (`ns_/wave_/mhd_induction_joint_cp_scores_fused`):
-  K1 followed by the `_scores_from_diff_stats` epilogue in plain torch, as
-  in the JAX package; or, with `single_pass=True` (NS and MHD entries), K9
+  K1 (or K3, by `routing_decision`) followed by the `_scores_from_diff_stats`
+  epilogue in plain torch, as in the JAX package; or, with `single_pass=True` (NS and MHD entries), K9
   `_joint_cp_scores_single_pass`, one launch and no diff tensor. On the
   card `single_pass=True` always launches K9: its Hopper design stashes
   nothing, so the TPU's VMEM fit test (`single_pass_fits`) has no
@@ -38,6 +43,12 @@ untrained or lightly trained surrogate predicts nearly the same residual
 for every sample, and the sup-norm score peaks in exactly those cells.
 The scores then agree with `modulation_func` + `ncf_metric_joint` (a
 two-pass std) where the one-pass formula does not.
+
+`routing_decision` (a pure function of the shape) sends the routed
+entries (`*_joint_cp_diff_stats`, `*_joint_cp_scores_fused` two-pass) to K1
+('paired') or K3 ('chunked'). K3 was slower than K1 at every shape timed on
+the card, so it says 'paired' throughout; cppre's 'composed' route answers
+a TPU VMEM limit that K1 does not have, and has no counterpart.
 
 Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. Each kernel counts its launches, every instance together,
@@ -78,6 +89,13 @@ __all__ = [
     "wave_joint_cp_scores_plain",
     "mhd_induction_joint_cp_scores_fused",
     "mhd_induction_joint_cp_scores_plain",
+    "ns_joint_cp_diff_stats_chunked",
+    "ns_joint_cp_diff_stats_chunked_plain",
+    "wave_joint_cp_diff_stats_chunked",
+    "wave_joint_cp_diff_stats_chunked_plain",
+    "mhd_joint_cp_diff_stats_chunked",
+    "mhd_joint_cp_diff_stats_chunked_plain",
+    "routing_decision",
     "MHD_EQUATIONS",
 ]
 
@@ -107,32 +125,38 @@ def _d_lap(a):
             + a[..., 1:-1, 1:-1, 2:] + a[..., 1:-1, 1:-1, :-2] - 4.0 * _interior(a))
 
 
+_GRID_OPS = (_interior, _d_t, _d_x, _d_y, _d_lap)
+
+
 def _coef(dt, dx, dy, nu):
     """The float32 constants of the NS residual, in the kernels' order."""
     f = lambda v: float(np.float32(v))
     return f(dx * dy), f(dt * dy), f(dt * dx), f(nu), f(dt)
 
 
-def _ns_momentum_math(fields, dt, dx, dy, nu):
+def _ns_momentum_math(fields, dt, dx, dy, nu, ops=_GRID_OPS):
     """The momentum residual on the interior window of [..., Nvar, Nt, Nx, Ny]
     fields, every derivative a shifted slice, in the term order of
-    `cppre.ops.pallas.stencil_kernels._ns_momentum_math`."""
+    `cppre.ops.pallas.stencil_kernels._ns_momentum_math`. `ops` are the
+    window and derivatives (the flat layout passes its own)."""
     cxy, cty, ctx, nu, dt = _coef(dt, dx, dy, nu)
+    I, d_t, d_x, d_y, d_lap = ops
     u, v, p = fields[:, 0], fields[:, 1], fields[:, 2]
-    ui, vi = _interior(u), _interior(v)
-    res_x = (_d_t(u) * cxy + ui * _d_x(u) * cty + vi * _d_y(u) * ctx
-             - nu * _d_lap(u) * dt + _d_x(p) * cty)
-    res_y = (_d_t(v) * cxy + ui * _d_x(v) * ctx + vi * _d_y(v) * cty
-             - nu * _d_lap(v) * dt + _d_y(p) * ctx)
+    ui, vi = I(u), I(v)
+    res_x = (d_t(u) * cxy + ui * d_x(u) * cty + vi * d_y(u) * ctx
+             - nu * d_lap(u) * dt + d_x(p) * cty)
+    res_y = (d_t(v) * cxy + ui * d_x(v) * ctx + vi * d_y(v) * cty
+             - nu * d_lap(v) * dt + d_y(p) * ctx)
     return res_x + res_y
 
 
-def _mhd_math(equation, fields):
+def _mhd_math(equation, fields, ops=_GRID_OPS):
     """The ideal-MHD residual `equation` on the interior window of
     [BS, 6, Nt, Nx, Ny] fields (rho, u, v, p, Bx, By), in the term order of
-    `cppre.ops.pallas.stencil_kernels._mhd_math`."""
+    `cppre.ops.pallas.stencil_kernels._mhd_math`; `ops` as for
+    `_ns_momentum_math`."""
     rho, u, v, p, Bx, By = (fields[:, i] for i in range(6))
-    I, d_t, d_x, d_y = _interior, _d_t, _d_x, _d_y
+    I, d_t, d_x, d_y, _ = ops
     if equation == "continuity":
         return (d_t(rho) + I(u) * d_x(rho) + I(rho) * d_x(u)
                 + I(v) * d_y(rho) + I(rho) * d_y(v))
@@ -164,9 +188,10 @@ def _mhd_math(equation, fields):
 
 class _Residual(NamedTuple):
     """One residual as the kernels take it: the CUDA cell kind (see
-    `csrc/stencil_kernels.cu`), the fields it needs, the stencil extent k
+    `csrc/stencil_cells.cuh`), the fields it needs, the stencil extent k
     (outputs are N - k + 1 on each axis), the NS constants, the tap kernel,
-    and the plain math [BS, Nvar, Nt, Nx, Ny] -> [BS, *out]."""
+    and the plain math [BS, Nvar, Nt, Nx, Ny] -> [BS, *out] (for NS and MHD
+    it takes `ops=`, the window and derivatives of another layout)."""
     kind: int
     nvar: int
     k: int
@@ -176,7 +201,7 @@ class _Residual(NamedTuple):
 
 
 def _ns_cell(dt, dx, dy, nu):
-    return _Residual(0, 3, 3, lambda f: _ns_momentum_math(f, dt, dx, dy, nu),
+    return _Residual(0, 3, 3, functools.partial(_ns_momentum_math, dt=dt, dx=dx, dy=dy, nu=nu),
                      _coef(dt, dx, dy, nu))
 
 
@@ -403,11 +428,12 @@ def ns_joint_cp_diff_stats_plain(truth, prediction, dt: float, dx: float, dy: fl
 
 def ns_joint_cp_diff_stats(truth, prediction, dt: float, dx: float, dy: float,
                            nu: float = 0.001, samples_per_block: int = 1, diff_dtype=None):
-    """One-pass joint-CP front end over the NS momentum PRE (kernel K1):
-    truth and prediction [BS, Nvar>=3, Nt, Nx, Ny] -> (diff [BS, Nt-2,
-    Nx-2, Ny-2], sum, sumsq [Nt-2, Nx-2, Ny-2]); see `_joint_cp_diff_stats`."""
-    return _joint_cp_diff_stats(truth, prediction, _ns_cell(dt, dx, dy, nu),
-                                samples_per_block, diff_dtype, "ns_joint_cp_diff_stats")[:3]
+    """One-pass joint-CP front end over the NS momentum PRE: truth and
+    prediction [BS, Nvar>=3, Nt, Nx, Ny] -> (diff [BS, Nt-2, Nx-2, Ny-2],
+    sum, sumsq [Nt-2, Nx-2, Ny-2]) through kernel K1, or K3 where
+    `routing_decision` picks it; see `_joint_cp_diff_stats`."""
+    return _diff_stats_routed(truth, prediction, _ns_cell(dt, dx, dy, nu),
+                              samples_per_block, diff_dtype, "ns_joint_cp_diff_stats")[:3]
 
 
 def wave_joint_cp_diff_stats_plain(truth, prediction, kernel, diff_dtype=None):
@@ -419,11 +445,12 @@ def wave_joint_cp_diff_stats_plain(truth, prediction, kernel, diff_dtype=None):
 
 def wave_joint_cp_diff_stats(truth, prediction, kernel, samples_per_block: int = 1,
                              diff_dtype=None):
-    """K1 over a constant-stencil PRE (the wave composite kernel): truth and
-    prediction [BS, Nt, Nx, Ny], kernel [k, k, k] with odd k -> (diff
-    [BS, Nt-k+1, Nx-k+1, Ny-k+1], sum, sumsq)."""
-    return _joint_cp_diff_stats(truth[:, None], prediction[:, None], _taps_cell(kernel),
-                                samples_per_block, diff_dtype, "wave_joint_cp_diff_stats")[:3]
+    """K1 (or, for k = 3, K3 by `routing_decision`) over a constant-stencil
+    PRE (the wave composite kernel): truth and prediction [BS, Nt, Nx, Ny],
+    kernel [k, k, k] with odd k -> (diff [BS, Nt-k+1, Nx-k+1, Ny-k+1], sum,
+    sumsq)."""
+    return _diff_stats_routed(truth[:, None], prediction[:, None], _taps_cell(kernel),
+                              samples_per_block, diff_dtype, "wave_joint_cp_diff_stats")[:3]
 
 
 def mhd_joint_cp_diff_stats_plain(truth, prediction, equation: str = "induction",
@@ -436,10 +463,165 @@ def mhd_joint_cp_diff_stats_plain(truth, prediction, equation: str = "induction"
 
 def mhd_joint_cp_diff_stats(truth, prediction, equation: str = "induction",
                             samples_per_block: int = 1, diff_dtype=None):
-    """K1 over an ideal-MHD PRE: truth and prediction [BS, 6, Nt, Nx, Ny] ->
-    (diff [BS, Nt-2, Nx-2, Ny-2], sum, sumsq)."""
-    return _joint_cp_diff_stats(truth, prediction, _mhd_cell(equation), samples_per_block,
-                                diff_dtype, "mhd_joint_cp_diff_stats")[:3]
+    """K1 (or K3 by `routing_decision`) over an ideal-MHD PRE: truth and
+    prediction [BS, 6, Nt, Nx, Ny] -> (diff [BS, Nt-2, Nx-2, Ny-2], sum,
+    sumsq)."""
+    return _diff_stats_routed(truth, prediction, _mhd_cell(equation), samples_per_block,
+                              diff_dtype, "mhd_joint_cp_diff_stats")[:3]
+
+
+# ---- K3: diff and moments, time-chunked ------------------------------------------
+
+# K3's tile of the interior (csrc/stencil_kernels.cu kChunkTX, kChunkTY): a
+# block stages a (t_block + 2) x 10 x 34 window of each variable its cell
+# reads, for truth and prediction, twice over (double buffer), in at most
+# 227 KB of shared memory; a thread keeps the sums of at most 8 frames.
+_K3_WINDOW = (10, 34)
+_K3_MAX_T_BLOCK = 8
+_SMEM_BYTES = 232448
+
+
+def _chunk_t_block(t_block: int, nvar: int, ot: int) -> int:
+    """The frames per chunk K3 runs for a requested `t_block`: at most 8 and
+    the interior's ot, then cut until the window fits shared memory, as
+    cppre cuts its t_block to fit VMEM. Raises if one frame does not fit."""
+    if t_block < 1:
+        raise ValueError(f"t_block must be >= 1, got {t_block}")
+    smem = lambda tb: 4 * 4 * nvar * (tb + 2) * _K3_WINDOW[0] * _K3_WINDOW[1]
+    tb = max(1, min(t_block, _K3_MAX_T_BLOCK, ot))
+    while tb > 1 and smem(tb) > _SMEM_BYTES:
+        tb -= 1
+    if smem(tb) > _SMEM_BYTES:
+        raise ValueError(f"K3: {nvar} variables do not fit shared memory even at t_block=1")
+    return tb
+
+
+def _joint_cp_diff_stats_chunked(truth, prediction, res: _Residual, t_block: int = 5,
+                                 centred: bool = False,
+                                 what: str = "joint_cp_diff_stats_chunked"):
+    """Kernel K3: K1's (diff, sum, sumsq, m2) for a 3-wide cell, each
+    block's window of the inputs staged in shared memory and walked over
+    the batch in sample order. The cell and the order are K1's, so are the
+    bits; `t_block` (cut to fit, `_chunk_t_block`) changes which block
+    computes a cell, never its value. The diff is float32. Counts the
+    launches of every K3 instance."""
+    _check_pair(truth, prediction, res, what)
+    if res.k != 3 or truth.shape[0] < 1:
+        raise ValueError(f"{what}: the chunked kernel takes 3-wide stencils and a batch, "
+                         f"got k={res.k}, {tuple(truth.shape)}")
+    tb = _chunk_t_block(t_block, truth.shape[1], truth.shape[2] - 2)
+    if not _build.on_cuda(truth):
+        return _diff_stats_plain(truth, prediction, res, None, centred)
+    _build.require(truth, "truth")
+    _build.require(prediction, "prediction", truth.shape, device=truth.device)
+    bs, nvar, nt, nx, ny = truth.shape
+    out = _out_shape(truth.shape, 3)
+    diff = torch.empty((bs,) + out, device=truth.device, dtype=torch.float32)
+    s, sq = (torch.empty(out, device=truth.device, dtype=torch.float32) for _ in range(2))
+    m2 = torch.empty(out, device=truth.device, dtype=torch.float32) if centred else None
+    cell, tables = _cell_args(res, _K3_WINDOW, truth.device)
+    lib = _build.library("stencil_kernels")
+    fn = _build.declare(lib, "cppre_joint_cp_diff_stats_chunked",
+                        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _F, _F, _F, _F, _F, _P, _P, _I, _P])
+    with torch.cuda.device(truth.device):
+        rc = fn(cell[0], truth.data_ptr(), prediction.data_ptr(), diff.data_ptr(),
+                s.data_ptr(), sq.data_ptr(), None if m2 is None else m2.data_ptr(),
+                bs, nvar, nt, nx, ny, tb, *cell[1:], _build.stream_of(truth))
+    _build.check(lib, rc, what)
+    _joint_cp_diff_stats_chunked.launches += 1
+    return diff, s, sq, m2
+
+
+_joint_cp_diff_stats_chunked.launches = 0
+
+
+def ns_joint_cp_diff_stats_chunked(truth, prediction, dt: float, dx: float, dy: float,
+                                   nu: float = 0.001, t_block: int = 5):
+    """NS-momentum instance of K3: truth and prediction [BS, Nvar>=3, Nt, Nx,
+    Ny] -> (diff [BS, Nt-2, Nx-2, Ny-2], sum, sumsq [Nt-2, Nx-2, Ny-2]), the
+    contract of `ns_joint_cp_diff_stats`."""
+    return _joint_cp_diff_stats_chunked(truth, prediction, _ns_cell(dt, dx, dy, nu), t_block,
+                                        what="ns_joint_cp_diff_stats_chunked")[:3]
+
+
+def ns_joint_cp_diff_stats_chunked_plain(truth, prediction, dt: float, dx: float, dy: float,
+                                         nu: float = 0.001, t_block: int = 5):
+    """Plain PyTorch `ns_joint_cp_diff_stats_chunked` (`t_block` only checked)."""
+    _chunk_t_block(t_block, truth.shape[1], truth.shape[2] - 2)
+    return ns_joint_cp_diff_stats_plain(truth, prediction, dt, dx, dy, nu)
+
+
+def _wave_cell_3(kernel, what):
+    res = _taps_cell(kernel)
+    if res.k != 3:
+        raise ValueError(f"{what}: the chunked route takes a 3-wide kernel (one-frame time "
+                         f"halo), got {res.kernel.shape}")
+    return res
+
+
+def wave_joint_cp_diff_stats_chunked(truth, prediction, kernel, t_block: int = 5):
+    """Wave-composite instance of K3 for 3-wide kernels: truth and
+    prediction [BS, Nt, Nx, Ny] single-variable trajectories -> (diff, sum,
+    sumsq) as `wave_joint_cp_diff_stats`. Raises on any other width."""
+    res = _wave_cell_3(kernel, "wave_joint_cp_diff_stats_chunked")
+    return _joint_cp_diff_stats_chunked(truth[:, None], prediction[:, None], res, t_block,
+                                        what="wave_joint_cp_diff_stats_chunked")[:3]
+
+
+def wave_joint_cp_diff_stats_chunked_plain(truth, prediction, kernel, t_block: int = 5):
+    """Plain PyTorch `wave_joint_cp_diff_stats_chunked`."""
+    _wave_cell_3(kernel, "wave_joint_cp_diff_stats_chunked")
+    _chunk_t_block(t_block, 1, truth.shape[1] - 2)
+    return wave_joint_cp_diff_stats_plain(truth, prediction, kernel)
+
+
+def mhd_joint_cp_diff_stats_chunked(truth, prediction, equation: str = "induction",
+                                    t_block: int = 5):
+    """MHD instance of K3 for any of the five equations: truth and
+    prediction [BS, 6, Nt, Nx, Ny] -> (diff, sum, sumsq) as
+    `mhd_joint_cp_diff_stats`. Stages only the variables the equation reads."""
+    return _joint_cp_diff_stats_chunked(truth, prediction, _mhd_cell(equation), t_block,
+                                        what="mhd_joint_cp_diff_stats_chunked")[:3]
+
+
+def mhd_joint_cp_diff_stats_chunked_plain(truth, prediction, equation: str = "induction",
+                                          t_block: int = 5):
+    """Plain PyTorch `mhd_joint_cp_diff_stats_chunked`."""
+    _chunk_t_block(t_block, truth.shape[1], truth.shape[2] - 2)
+    return mhd_joint_cp_diff_stats_plain(truth, prediction, equation)
+
+
+# ---- routing: K1 or K3 --------------------------------------------------------------
+
+def routing_decision(shape, out_shape=None, has_chunked: bool = True) -> str:
+    """Which kernel the routed joint-CP entries launch for [BS, nvar, nt, nx,
+    ny] inputs on the card: 'paired' (K1) or 'chunked' (K3, only for a cell
+    with a chunked instance, `has_chunked`). A pure function of the shape.
+    cppre's third route, 'composed', exists because its paired kernel needs
+    whole trajectories in VMEM; K1 has no such ceiling here.
+
+    K1 everywhere: timed on an H100 at the three flagship K1 shapes and
+    cppre's three grid-scaling shapes (up to [12, 3, 21, 512, 512]), K3 took
+    1.3-2.9x K1's time at every one (PERF.md): it stages ~1.9x each input's
+    bytes through shared memory, and its windows hold one or two blocks per
+    SM. The explicit `*_joint_cp_diff_stats_chunked` entries still launch
+    K3."""
+    return "paired"
+
+
+def _diff_stats_routed(truth, prediction, res: _Residual, samples_per_block, diff_dtype,
+                       what, centred=False):
+    """K1 or K3 by `routing_decision`, with K1's outputs (diff, sum, sumsq,
+    m2); a bfloat16 `diff_dtype` is applied after K3, as cppre casts after
+    its chunked kernel."""
+    route = routing_decision(tuple(truth.shape), _out_shape(truth.shape, res.k), res.k == 3)
+    if route == "chunked":
+        diff, s, sq, m2 = _joint_cp_diff_stats_chunked(truth, prediction, res, centred=centred,
+                                                       what=what)
+        return diff.to(diff_dtype or torch.float32), s, sq, m2
+    return _joint_cp_diff_stats(truth, prediction, res, samples_per_block, diff_dtype, what,
+                                centred)
 
 
 # ---- scores: K1 + epilogue, or K9 ----------------------------------------------
@@ -488,8 +670,8 @@ _joint_cp_scores_single_pass.launches = 0
 def _scores(truth, prediction, res, eps, samples_per_block, diff_dtype, single_pass, what):
     if single_pass:
         return _joint_cp_scores_single_pass(truth, prediction, res, eps, what)
-    diff, _, _, m2 = _joint_cp_diff_stats(truth, prediction, res, samples_per_block,
-                                          diff_dtype, what, centred=True)
+    diff, _, _, m2 = _diff_stats_routed(truth, prediction, res, samples_per_block,
+                                        diff_dtype, what, centred=True)
     return _scores_from_diff_stats(diff, m2, truth.shape[0], eps)
 
 
@@ -512,8 +694,9 @@ def ns_joint_cp_scores_fused(truth, prediction, dt: float, dx: float, dy: float,
                              single_pass: bool = False):
     """Joint-CP nonconformity scores [BS] over the NS momentum PRE:
     per-sample sup-norm of |diff| / (std(diff, axis=0) + eps), the same as
-    `modulation_func` + `ncf_metric_joint`. Two-pass through kernel K1 and
-    the epilogue; `single_pass=True` launches K9 instead (it stages no diff,
+    `modulation_func` + `ncf_metric_joint`. Two-pass through kernel K1 (or
+    K3, by `routing_decision`) and the epilogue; `single_pass=True` launches
+    K9 instead (it stages no diff,
     so `diff_dtype` and `samples_per_block` do not apply)."""
     return _scores(truth, prediction, _ns_cell(dt, dx, dy, nu), eps, samples_per_block,
                    diff_dtype, single_pass, "ns_joint_cp_scores_fused")
@@ -530,8 +713,9 @@ def mhd_induction_joint_cp_scores_fused(truth, prediction, eps: float = 1e-6,
                                         samples_per_block: int = 1, diff_dtype=None,
                                         single_pass: bool = False):
     """Joint-CP nonconformity scores [BS] over the MHD induction PRE, one
-    read of each [BS, 6, Nt, Nx, Ny] tensor per pass: K1 and the epilogue,
-    or with `single_pass=True` kernel K9."""
+    read of each [BS, 6, Nt, Nx, Ny] tensor per pass: K1 (or K3, by
+    `routing_decision`) and the epilogue, or with `single_pass=True` kernel
+    K9."""
     return _scores(truth, prediction, _mhd_cell("induction"), eps, samples_per_block,
                    diff_dtype, single_pass, "mhd_induction_joint_cp_scores_fused")
 
@@ -546,7 +730,8 @@ def wave_joint_cp_scores_plain(truth, prediction, kernel, eps: float = 1e-6,
 def wave_joint_cp_scores_fused(truth, prediction, kernel, eps: float = 1e-6,
                                samples_per_block: int = 1, diff_dtype=None):
     """Joint-CP nonconformity scores [BS] over the wave composite-kernel PRE
-    through K1 and the epilogue. truth/prediction [BS, Nt, Nx, Ny]
+    through K1 (or, for k = 3, K3 by `routing_decision`) and the epilogue.
+    truth/prediction [BS, Nt, Nx, Ny]
     single-variable trajectories; kernel the additive D_tt - (c dt/dx)^2
     D_xxyy stencil, or any [k, k, k] kernel with odd k (valid interior
     (Nt-k+1, Nx-k+1, Ny-k+1))."""

@@ -15,7 +15,8 @@ outputs and for dx/dz of their backward passes; 1e-3 for the backward
 weight gradients, which are sums over every pixel of the batch taken in
 another order than autograd's. K9's scores agree with the two-pass route's
 within 1e-6 relative (the same cell forms each diff; the epilogue's
-arithmetic is repeated in the kernel).
+arithmetic is repeated in the kernel). K3 equals K1, and K11 then K12 equal
+K10, bit for bit: each pair calls one cell in one batch order.
 """
 
 import numpy as np
@@ -24,6 +25,8 @@ import torch
 
 from cppre_torch.models import FNO2d, fno2d_forward_fused, make_fused_train_apply
 from cppre_torch.ops import kernels as K
+from cppre_torch.ops.kernels import flat_kernels as fk
+from cppre_torch.ops.kernels import stencil_kernels as sk
 from cppre_torch.train.loops import make_optimizer, make_train_step
 from cppre_torch.train.losses import lp_loss
 
@@ -194,8 +197,8 @@ def test_fused_train_step_matches_plain_autograd(dev):
         loss, full = step(xx, yy)
         losses.append(float(loss))
         grads.append([p.grad for p in model.parameters()])
-    assert K.launch_counts() == {"K1": 0, "K2": 0, "K4": 36, "K5": 6, "K6": 18, "K7": 3,
-                                 "K8": 0, "K9": 0}
+    assert K.launch_counts() == dict({k: 0 for k in K.KERNELS},
+                                     K4=36, K5=6, K6=18, K7=3)
     assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
     for ga, gb in zip(*grads):
         _close(ga, gb, 1e-3)
@@ -307,3 +310,114 @@ def test_made_from_nothing_defaults_to_the_card(dev):
     assert MinMaxNormalizer(_randn((4, 3), 31, dev)).a.device.type == "cuda"
     assert Wave2D(16, -1.0, 1.0, 1.0, 1.0).solve_batch([[20.0, 0.3, 0.3]]).is_cuda
     assert mhd_solve_batch([[0.7, 0.8, 0.6]], 16, 1.0, 0.002, dt=1e-3, store_every=1)[0].is_cuda
+
+
+# ---- K3 (time-chunked diff and moments) and K10-K12 (flat layout) -------------
+
+def _chunked_case(family, dev):
+    """Ragged shapes: tiles of 8 x 32 interior cells and chunks of frames
+    that do not divide the grid."""
+    if family == "ns":
+        t = _randn((3, 3, 12, 21, 70), 40, dev)
+        return t, lambda a, b, tb: K.ns_joint_cp_diff_stats_chunked(a, b, *ARGS, t_block=tb), \
+            lambda a, b: K.ns_joint_cp_diff_stats(a, b, *ARGS), sk._ns_cell(*ARGS)
+    if family == "wave":
+        kern = _taps(3, 41)
+        t = _randn((4, 11, 19, 45), 40, dev)
+        return t, lambda a, b, tb: K.wave_joint_cp_diff_stats_chunked(a, b, kern, t_block=tb), \
+            lambda a, b: K.wave_joint_cp_diff_stats(a, b, kern), None
+    eq = family.split("-")[1]
+    t = _mhd((3, 6, 10, 17, 40), 40, dev)
+    return t, lambda a, b, tb: K.mhd_joint_cp_diff_stats_chunked(a, b, eq, t_block=tb), \
+        lambda a, b: K.mhd_joint_cp_diff_stats(a, b, eq), sk._mhd_cell(eq)
+
+
+@pytest.mark.parametrize("family", ["ns", "wave"] + [f"mhd-{e}" for e in K.MHD_EQUATIONS])
+def test_chunked_kernel(dev, family):
+    """K3 against its plain version (1e-5 of max), against K1 bit for bit,
+    the same bits at every t_block, and its centred second pass K1's."""
+    t, chunked, paired, cell = _chunked_case(family, dev)
+    p = t + 0.1 * _randn(t.shape, 42, dev)
+    before = K.launch_counts()
+    got = chunked(t, p, 5)
+    assert K.launch_counts()["K3"] == before["K3"] + 1
+    ref = (K.wave_joint_cp_diff_stats_plain(t, p, _taps(3, 41)) if family == "wave"
+           else sk._diff_stats_plain(t, p, cell)[:3])
+    for g, r in zip(got, ref):
+        _close(g, r, 1e-5)
+    k1 = paired(t, p)
+    assert all(torch.equal(a, b) for a, b in zip(got, k1))
+    for tb in (1, 2, 3, 8):
+        assert all(torch.equal(a, b) for a, b in zip(got, chunked(t, p, tb)))
+    if cell is not None:
+        m2_k3 = sk._joint_cp_diff_stats_chunked(t, p, cell, centred=True)[3]
+        m2_k1 = sk._joint_cp_diff_stats(t, p, cell, centred=True)[3]
+        assert torch.equal(m2_k3, m2_k1)
+
+
+def test_routed_entries_launch_k3_where_routing_says_chunked(dev, monkeypatch):
+    t = _randn((3, 3, 5, 40, 70), 43, dev)
+    p = t + 0.1 * _randn(t.shape, 44, dev)
+    K.reset_launch_counts()
+    K.ns_joint_cp_scores_fused(t, p, *ARGS)
+    assert K.launch_counts()["K1"] == 1 and K.launch_counts()["K3"] == 0
+    monkeypatch.setattr(sk, "routing_decision", lambda *a, **k: "chunked")
+    K.reset_launch_counts()
+    routed = K.ns_joint_cp_scores_fused(t, p, *ARGS)
+    bf = K.ns_joint_cp_scores_fused(t, p, *ARGS, diff_dtype=torch.bfloat16)
+    assert K.launch_counts()["K3"] == 2 and K.launch_counts()["K1"] == 0
+    res = sk._ns_cell(*ARGS)
+    for dtype, scores in ((torch.float32, routed), (torch.bfloat16, bf)):
+        d, _, _, m2 = sk._joint_cp_diff_stats(t, p, res, diff_dtype=dtype, centred=True)
+        assert torch.equal(scores, sk._scores_from_diff_stats(d, m2, 3, 1e-6))
+
+
+def _flat_case(family, dev):
+    if family == "ns":
+        t = _randn((5, 3, 7, 13, 37), 45, dev)
+        return t, sk._ns_cell(*ARGS), 37
+    if family.startswith("wave"):
+        kern = _taps(3, 46)
+        kern[1, 1, 1] = 1.0
+        if family == "wave-corner":
+            kern[1, 0, 0] = 0.5
+        else:
+            kern[:, 0, 0] = kern[:, 0, 2] = kern[:, 2, 0] = kern[:, 2, 2] = 0.0
+        t = _randn((5, 1, 7, 13, 37), 45, dev)
+        return t, sk._taps_cell(kern), fk._composite_off(kern, 37)
+    t = _mhd((5, 6, 7, 13, 37), 45, dev)
+    return t, sk._mhd_cell(family.split("-")[1]), 37
+
+
+@pytest.mark.parametrize("family", ["ns", "wave", "wave-corner"]
+                         + [f"mhd-{e}" for e in K.MHD_EQUATIONS])
+def test_flat_kernels(dev, family):
+    """K10 against its plain version over the whole flat window (y-wrap
+    columns included), K11 then K12 against K10 bit for bit."""
+    t, res, off = _flat_case(family, dev)
+    p = t + 0.1 * _randn(t.shape, 47, dev)
+    tf, pf = t.reshape(t.shape[:3] + (-1,)), p.reshape(p.shape[:3] + (-1,))
+    ny = t.shape[-1]
+    before = K.launch_counts()
+    got = fk._flat_paired_absdiff_stats(tf, pf, res, ny, off)
+    r = fk._flat_residual_kernel(tf, res, ny, off)
+    two = fk._flat_absdiff_stats_from_res(pf, r, res, ny, off)
+    after = K.launch_counts()
+    assert [after[k] - before[k] for k in ("K10", "K11", "K12")] == [1, 1, 1]
+    for g, ref in zip(got, fk._flat_paired_absdiff_stats_plain(tf, pf, res, ny, off)):
+        _close(g, ref, 1e-5)
+    _close(r, fk._flat_residual_plain(tf, res, ny, off), 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, two))
+    assert all(torch.equal(a, b) for a, b in zip(got, fk._flat_paired_absdiff_stats(tf, pf, res,
+                                                                                   ny, off)))
+
+
+def test_flat_scores_kernel(dev):
+    t = _mhd((6, 6, 7, 20, 24), 48, dev)
+    p = t + 0.1 * _randn(t.shape, 49, dev)
+    _close(K.mhd_joint_cp_scores_flat(t, p, "momentum"),
+           K.mhd_joint_cp_scores_flat_plain(t, p, "momentum"), 1e-5)
+    tn = _randn((6, 3, 7, 20, 24), 50, dev)
+    pn = tn + 0.1 * _randn(tn.shape, 51, dev)
+    _close(K.ns_joint_cp_scores_flat(tn, pn, *ARGS), K.ns_joint_cp_scores_flat_plain(tn, pn, *ARGS),
+           1e-5)

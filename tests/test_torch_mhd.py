@@ -161,6 +161,9 @@ def test_solver_matches_cppre():
 
 TINY = {"N": 16, "tEnd": 0.1, "dt": 1e-3, "t_slice": 25, "T_out": 3, "n_train": 0,
         "n_cal": 10, "n_pred": 6, "Width_time": 4, "Modes": 3}
+# the end-to-end runs at an 8^2 grid and 6 + 4 designs (JAX's compiles, not
+# the sizes, dominate their time on the CPU)
+RUN = dict(TINY, N=8, n_cal=6, n_pred=4)
 
 
 @pytest.mark.parametrize("box", [None, ([1.0, 1.0, 1.0], [1.5, 1.5, 1.5])])
@@ -197,15 +200,15 @@ def test_mhd_run_matches_cppre(mode):
     above the float32 noise of the two rollouts (at 5 ms the AER+PRE qhat
     moves by 1e-2)."""
     jm = JFNO2d(T_in=1, step=1, modes1=3, modes2=3, num_vars=6, width_time=4)
-    params = jax.device_get(jm.init(jax.random.PRNGKey(1), jnp.zeros((1, 6, 16, 16, 1))))
+    params = jax.device_get(jm.init(jax.random.PRNGKey(1), jnp.zeros((1, 6, 8, 8, 1))))
     model = fno2d_from_jax(params, FNO2d(1, 1, 3, 3, 6, 4, device="cpu"))
-    ours = mhd.run(mode, config=TINY, params=model.state_dict(), verbose=False, device="cpu",
+    ours = mhd.run(mode, config=RUN, params=model.state_dict(), verbose=False, device="cpu",
                    return_residuals=True)
-    ref = jmhd.run(mode, config=TINY, params=params, verbose=False, return_residuals=True)
-    assert tuple(ours["res_pred"].shape) == np.asarray(ref["res_pred"]).shape == (6, 1, 14, 14)
+    ref = jmhd.run(mode, config=RUN, params=params, verbose=False, return_residuals=True)
+    assert tuple(ours["res_pred"].shape) == np.asarray(ref["res_pred"]).shape == (4, 1, 6, 6)
     q, jq = np.asarray(ours["qhat"]), np.asarray(ref["qhat"])
     np.testing.assert_allclose(q, jq, rtol=0, atol=1e-3 * np.abs(jq).max())
-    n = TINY["n_pred"] if mode == "joint" else ours["res_pred"].numel()
+    n = RUN["n_pred"] if mode == "joint" else ours["res_pred"].numel()
     slack = 0 if mode == "joint" else 0.005 * n
     for key in ("coverage_aer_pre", "coverage_pre", "coverage_aer_pre_holdout",
                 "coverage_pre_holdout"):
@@ -219,11 +222,11 @@ def test_mhd_run_matches_cppre(mode):
 
 def test_mhd_training_smoke():
     """Training through the fused apply (its plain version on the CPU) on
-    the MHD configuration cut to a 16^2 grid and 1 epoch."""
-    cfg = dict(TINY, n_train=4, n_cal=4, n_pred=4, Epochs=1, **{"Batch Size": 2})
+    the MHD configuration cut to an 8^2 grid, one step of one epoch."""
+    cfg = dict(RUN, n_train=2, n_cal=4, n_pred=2, Epochs=1, **{"Batch Size": 2})
     out = mhd.run("joint", config=cfg, verbose=False, device="cpu")
     assert len(out["train_losses"]) == 1 and np.isfinite(out["train_losses"]).all()
-    assert out["pred_cal"].shape == (4, 6, 16, 16, 3) and np.isfinite(out["qhat"]).all()
+    assert out["pred_cal"].shape == (4, 6, 8, 8, 3) and np.isfinite(out["qhat"]).all()
 
 
 def test_fno2d_from_jax_carries_the_mhd_model():
