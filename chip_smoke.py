@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Runs three model families of the JAX package at full width through the
+Runs four model families of the JAX package at full width through the
 hand-written CUDA kernels, and holds every kernel against its plain PyTorch
 version:
 - NS, the flagship: FNO2d(T_in=1, step=1, modes 8x8, 3 variables, width
@@ -18,11 +18,16 @@ version:
   5000 steps, FNO width 16, modes 8, six variables, batch 5), then the
   trained model served and calibrated, with K2's induction residual, and
   calibrated again through K1 and through K9.
-Training is cut to 2 epochs in all three. Then the joint-CP scores beyond
-the flagships: the time-chunked K3 at cppre's grid-scaling shapes (NS
-[12,3,21,512,512], MHD induction [25,6,21,256,256], wave [12,26,512,512])
-and the flat-layout K10-K12 at the shapes where K1 is timed. Phases, one
-line each:
+- JOREK: `experiments.jorek.run` at its full CONFIG (300 synthetic-blob
+  designs at 32 x 32 x 50, FNO T_in 10, step 10, T_out 40, width 16,
+  modes 8, three variables, batch 5), then the trained model served and
+  calibrated, with K2's JOREK continuity residual, and calibrated again
+  through K1 and the explicit chunked K3.
+Training is cut to 2 epochs in all four. Then the joint-CP scores beyond
+the flagships: the time-chunked K3 at cppre's grid-scaling shapes (NS and
+JOREK [12,3,21,512,512], MHD induction [25,6,21,256,256], wave
+[12,26,512,512]) and the flat-layout K10-K12 at the shapes where K1 is
+timed. Phases, one line each:
 
   build      compile the kernels from `cppre_torch/csrc` (nvcc, in parallel);
              then one `ptxas` line per kernel function: registers and spills
@@ -30,7 +35,9 @@ line each:
   kernels    every kernel against its plain version at the main paths'
              shapes (K1, K2, K4, K5 at the NS serving shapes, K6, K7 at the
              NS training shapes; K8, K1 wave, K4-K7 at the wave shapes; K2
-             (5 equations), K1 and K9 MHD, K4-K7 at the MHD shapes): max abs
+             (5 equations), K1 and K9 MHD, K4-K7 at the MHD shapes; K2
+             (both equations, and a non-affine R against PRE_JOREK), K1, K3
+             and K4-K7 (K5/K7 at step 10) at the JOREK shapes): max abs
              / relative error, median times (CUDA events), the bound from
              bytes and operations, and for K8 the time of the one PyTorch
              call (conv3d) that computes the same function
@@ -51,11 +58,13 @@ line each:
              kernels
   parity     one train step through K4-K7 and through plain autograd from
              the same weights and batch: the loss and every gradient agree
-  wave, mhd  the family's run (solver s, train s, losses, qhat, coverage at
-             alpha=0.1, launches), then `<family>-serve` (the surrogate on
-             the trained model, its qhat against the K1 route's, and K9's
-             for MHD), `<family>-step` (one train step: launches, ms) and
-             its `profile` line
+  wave, mhd, jorek
+             the family's run (solver s, or JOREK's data s, train s, losses,
+             qhat, coverage at alpha=0.1, launches), then `<family>-serve`
+             (the surrogate on the trained model, its qhat against the K1
+             route's, K9's for MHD, and for JOREK K3 against K1 bit for bit
+             on the calibration set), `<family>-step` (one train step at the
+             family's step: launches, ms) and its `profile` line
   scaling    per scaling shape (one `[kernels] kernel=K3` line each): the
              explicit `*_joint_cp_diff_stats_chunked` entry, the routed
              scores and calibrate at alpha=0.1 (the main path); K3 against
@@ -71,7 +80,7 @@ line each:
              qhat against the plain flat qhat (1e-3); K10, K11, K12, plain ms
 
 The launch counters are set to 0 before each main path (NS serve +
-calibrate; NS train; wave; MHD; each scaling shape; each flat family) and
+calibrate; NS train; wave; MHD; JOREK; each scaling shape; each flat family) and
 read after it: every kernel of that path must have launched in its window.
 Then one JSON line of kernel results, the card's name and power limit, and
 as the last line
@@ -113,10 +122,14 @@ WAVE = dict(width=32, modes=16, nvar=1, nx=64, ny=64, rollout=1100, batch=50,
             res_shape=(1000, 20, 64, 64))
 MHD = dict(width=16, modes=8, nvar=6, nx=128, ny=128, rollout=200, batch=5,
            res_shape=(100, 6, 20, 128, 128))
+# the JOREK configuration (cppre/experiments/jorek.py CONFIG; T_in 10,
+# step 10, T_out 40) on the synthetic blobs' 32 x 32 x 50 grid
+JOREK = dict(width=16, modes=8, nvar=3, nx=32, ny=32, rollout=200, batch=5,
+             res_shape=(100, 3, 40, 32, 32))
 # cppre's grid-scaling shapes (scripts/bench_scaling.py:37-42, :126, :152),
-# for the chunked K3 beside K1
+# for the chunked K3 beside K1; JOREK at the NS shape, R over [2.6, 3.4]
 SCALING = {"ns": (12, 3, 21, 512, 512), "mhd": (25, 6, 21, 256, 256),
-           "wave": (12, 26, 512, 512)}
+           "wave": (12, 26, 512, 512), "jorek": (12, 3, 21, 512, 512)}
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bandwidth and
 # float32 outside the tensor cores. A bound is the larger of bytes / HBM
@@ -132,6 +145,11 @@ NS_FIELDS = 3
 # fields (of rho, u, v, p, Bx, By) it reads
 MHD_RES_FLOPS = {"continuity": 13, "momentum": 46, "energy": 40, "induction": 27, "gauss": 3}
 MHD_FIELDS = {"continuity": 3, "momentum": 6, "energy": 6, "induction": 4, "gauss": 2}
+# the same for the JOREK residuals (struct Jorek: the differences each
+# equation takes, d_xx and d_yy, 1/R, the brackets, then its terms), and
+# the fields of (rho, Phi, T) each reads; both also read the R table
+JOREK_RES_FLOPS = {"continuity": 25, "temperature": 39}
+JOREK_FIELDS = {"continuity": 2, "temperature": 3}
 
 KERNEL_INFO = {
     "K1": ("cppre_torch/csrc/stencil_kernels.cu", "cppre/ops/pallas/stencil_kernels.py:460"),
@@ -153,6 +171,7 @@ PATH_KERNELS = {
     "ns-train": ("K2", "K4", "K5", "K6", "K7"),
     "wave": ("K1", "K4", "K5", "K6", "K7", "K8"),
     "mhd": ("K1", "K2", "K4", "K5", "K6", "K7", "K9"),
+    "jorek": ("K1", "K2", "K3", "K4", "K5", "K6", "K7"),
     "scaling": ("K1", "K3"),
     "flat": ("K10", "K11", "K12"),
 }
@@ -337,12 +356,12 @@ def fno_block_macs(b, w, v, nx, ny, m, backward=False):
     return fwd + dft + 2 * mix + inv + pix * 6 * w * w if backward else fwd
 
 
-def build_model(device, width=WIDTH, modes=MODES, nvar=NVAR):
+def build_model(device, width=WIDTH, modes=MODES, nvar=NVAR, t_in=T_IN, step=STEP):
     import torch
     from cppre_torch.models import FNO2d
 
     gen = torch.Generator().manual_seed(SEED)
-    return FNO2d(T_IN, STEP, modes, modes, nvar, width, device=device, generator=gen).eval()
+    return FNO2d(t_in, step, modes, modes, nvar, width, device=device, generator=gen).eval()
 
 
 def report(results, kid, family, **extra):
@@ -354,9 +373,11 @@ def report(results, kid, family, **extra):
         **extra)
 
 
-def fno_kernels(results, family, device, width, modes, nvar, nx, ny, b_fwd, b_bwd, seed):
+def fno_kernels(results, family, device, width, modes, nvar, nx, ny, b_fwd, b_bwd, seed,
+                t_in=T_IN, step=STEP):
     """K4 and K5 at the rollout batch, K6 and K7 at the training batch, on
-    random activations with a seeded model's weights, against their plain
+    random activations with the weights of a seeded model of the family's
+    t_in and step (K5 and K7 take `step` outputs), against their plain
     versions. Outputs and dx/dz within 1e-4 of max|plain|; the weight grads
     of K6/K7 within 1e-3, since they are sums over every pixel of the batch
     taken in another order than autograd's. Two backward calls must give
@@ -365,7 +386,7 @@ def fno_kernels(results, family, device, width, modes, nvar, nx, ny, b_fwd, b_bw
     from cppre_torch.models.fno import get_grid
     from cppre_torch.ops import kernels as K
 
-    model = build_model(device, width, modes, nvar)
+    model = build_model(device, width, modes, nvar, t_in, step)
     gen = torch.Generator(device=device).manual_seed(seed)
     blk = model.f0
     grid_c = get_grid((1, nvar, nx, ny), device).permute(0, 4, 1, 2, 3)
@@ -389,7 +410,7 @@ def fno_kernels(results, family, device, width, modes, nvar, nx, ny, b_fwd, b_bw
         n_pix = z.numel() // width
         results[("K5", family)] = dict(
             max_abs_err=err, rel_err=rel,
-            bound=bound(nbytes(z, ref), 2 * n_pix * W_PROJ * (width + STEP)),
+            bound=bound(nbytes(z, ref), 2 * n_pix * W_PROJ * (width + step)),
             ms=cuda_ms(lambda: K.projection2d_fused(z, fc1, fc2)),
             plain_ms=cuda_ms(lambda: K.projection2d_plain(z, fc1, fc2)))
         del z, got, ref
@@ -398,7 +419,7 @@ def fno_kernels(results, family, device, width, modes, nvar, nx, ny, b_fwd, b_bw
     x = torch.randn(shape, generator=gen, device=device)
     g = torch.randn(shape, generator=gen, device=device)
     z = torch.randn((b_bwd, nvar, nx, ny, width), generator=gen, device=device)
-    gz = torch.randn((b_bwd, nvar, nx, ny, STEP), generator=gen, device=device)
+    gz = torch.randn((b_bwd, nvar, nx, ny, step), generator=gen, device=device)
     cases = {
         "K6": (lambda: K.fno_block2d_bwd_fused(x, g, blk, x3, modes, modes),
                lambda: K.fno_block2d_bwd_plain(x, g, blk, x3, modes, modes),
@@ -406,7 +427,7 @@ def fno_kernels(results, family, device, width, modes, nvar, nx, ny, b_fwd, b_bw
         "K7": (lambda: K.projection2d_bwd_fused(z, gz, fc1, fc2),
                lambda: K.projection2d_bwd_plain(z, gz, fc1, fc2),
                bound(nbytes(z, gz, z),
-                     2 * (z.numel() // width) * W_PROJ * (3 * width + 2 * STEP))),
+                     2 * (z.numel() // width) * W_PROJ * (3 * width + 2 * step))),
     }
     for k, (kern, plain, bnd) in cases.items():
         got, ref = kern(), plain()
@@ -420,10 +441,10 @@ def fno_kernels(results, family, device, width, modes, nvar, nx, ny, b_fwd, b_bw
     del model, x, g, z, gz, x3
     torch.cuda.empty_cache()
     for k in ("K4", "K5", "K6", "K7"):
-        extra = {}
+        extra = {"step": step} if k in ("K5", "K7") else {}
         if k in ("K6", "K7"):
-            extra = {"weight_grad_rel_err": f"{results[(k, family)]['wgrad_rel']:.3e}",
-                     "bitwise_rerun": True}
+            extra.update(weight_grad_rel_err=f"{results[(k, family)]['wgrad_rel']:.3e}",
+                         bitwise_rerun=True)
         report(results, k, family, **extra)
 
 
@@ -616,6 +637,88 @@ def phase_kernels_mhd(results, device):
                 MHD["ny"], MHD["rollout"], MHD["batch"], SEED + 21)
 
 
+def jorek_r(nx, affine=True):
+    """The JOREK experiment's major-radius grid, linspace(2.6, 3.4, nx)
+    (cppre_torch.experiments.jorek.synthetic_blobs), or a non-affine one."""
+    r = np.linspace(2.6, 3.4, nx).astype(np.float32)
+    return r if affine else r ** 1.5
+
+
+def phase_kernels_jorek(results, device):
+    """K2 (both equations, and a non-affine R against `PRE_JOREK`), K1 and
+    K3 (bit for bit K1's, the centred pass too) at the JOREK residual shape
+    [100, 3, 40, 32, 32] (the calibration set), and K4-K7 at the JOREK
+    model's shapes with its T_in 10 and step 10."""
+    import torch
+    from cppre_torch.experiments import jorek
+    from cppre_torch.ops import kernels as K
+    from cppre_torch.ops.kernels import stencil_kernels as sk
+    from cppre_torch.residuals import PRE_JOREK
+
+    c = jorek.CONFIG
+    coef = dict(Dc=c["D"], K=c["K"])
+    R = jorek_r(JOREK["nx"])
+    truth, pred = device_fields(JOREK["res_shape"], SEED + 60, device)
+    field_bytes = nbytes(truth) // 3
+    for eq in K.JOREK_EQUATIONS:
+        got = K.jorek_residual_fused(truth, R, equation=eq, **coef)
+        ref = K.jorek_residual_plain(truth, R, equation=eq, **coef)
+        err, rel = compare(f"K2 JOREK {eq}", got, ref, 1e-5)
+        same_bits(f"K2 JOREK {eq}", got, K.jorek_residual_fused(truth, R, equation=eq, **coef))
+        fam = "jorek" if eq == c["equation"] else f"jorek-{eq}"
+        results[("K2", fam)] = dict(
+            max_abs_err=err, rel_err=rel,
+            bound=bound(JOREK_FIELDS[eq] * field_bytes + R.nbytes + nbytes(ref),
+                        JOREK_RES_FLOPS[eq] * ref.numel()),
+            ms=cuda_ms(lambda: K.jorek_residual_fused(truth, R, equation=eq, **coef)),
+            plain_ms=cuda_ms(lambda: K.jorek_residual_plain(truth, R, equation=eq, **coef)))
+        report(results, "K2", fam, equation=eq, bitwise_rerun=True)
+        del got, ref
+    # a non-affine grid runs the kernel too, against the PRE_JOREK class
+    rn = jorek_r(JOREK["nx"], affine=False)
+    pre = PRE_JOREK(rn, 1.0, 1.0, 1.0, D=c["D"], K=c["K"], device=device)
+    for eq in K.JOREK_EQUATIONS:
+        before = K.launch_counts()["K2"]
+        got = K.jorek_residual_fused(truth, rn, equation=eq, **coef)
+        if K.launch_counts()["K2"] != before + 1:
+            raise AssertionError("K2 did not launch for a non-affine R")
+        _, rel = compare(f"K2 JOREK {eq} non-affine R vs PRE_JOREK", got,
+                         pre.residual(truth, eq), 1e-5)
+        say("kernels", kernel="K2", family=f"jorek-{eq}-non-affine-R", vs="PRE_JOREK",
+            rel_err=f"{rel:.3e}")
+        del got
+
+    # K1 (diff, sum, sumsq) and K3, the continuity instance
+    cell = sk._jorek_cell(R, c["D"], c["K"], c["equation"])
+    run_k1 = lambda: sk._joint_cp_diff_stats(truth, pred, cell)[:3]
+    d, s, q = run_k1()
+    d0, s0, q0 = K.jorek_joint_cp_diff_stats_chunked_plain(truth, pred, R, **coef)
+    err, rel = compare("K1 JOREK diff", d, d0, 1e-5)
+    compare("K1 JOREK sum", s, s0, 1e-5)
+    compare("K1 JOREK sumsq", q, q0, 1e-5)
+    same_bits("K1 JOREK", (d, s, q), run_k1())
+    same_bits("K3 vs K1 JOREK (diff, sum, sumsq, centred)",
+              sk._joint_cp_diff_stats(truth, pred, cell, centred=True),
+              sk._joint_cp_diff_stats_chunked(truth, pred, cell, centred=True))
+    eqf = JOREK_RES_FLOPS[c["equation"]]
+    in_bytes = 2 * JOREK_FIELDS[c["equation"]] * field_bytes + R.nbytes
+    bnd = bound(in_bytes + nbytes(d0, s0, q0), (2 * eqf + 1 + 4) * d0.numel())
+    plain_ms = cuda_ms(lambda: K.jorek_joint_cp_diff_stats_chunked_plain(truth, pred, R, **coef))
+    results[("K1", "jorek")] = dict(max_abs_err=err, rel_err=rel, bound=bnd, ms=cuda_ms(run_k1),
+                                    plain_ms=plain_ms)
+    report(results, "K1", "jorek", bitwise_rerun=True)
+    results[("K3", "jorek")] = dict(
+        max_abs_err=err, rel_err=rel, bound=bnd, plain_ms=plain_ms,
+        ms=cuda_ms(lambda: K.jorek_joint_cp_diff_stats_chunked(truth, pred, R, **coef)))
+    report(results, "K3", "jorek", k3_vs_k1_bitwise=True,
+           t_block_run=sk._chunk_t_block(5, 3, JOREK["res_shape"][2] - 2))
+    del truth, pred, d, s, q, d0, s0, q0
+    torch.cuda.empty_cache()
+    fno_kernels(results, "jorek", device, JOREK["width"], JOREK["modes"], JOREK["nvar"],
+                JOREK["nx"], JOREK["ny"], JOREK["rollout"], JOREK["batch"], SEED + 61,
+                t_in=c["T_in"], step=c["Step"])
+
+
 def coverage_at_alpha(out):
     """Coverage at alpha = 0.1 of the four joint estimators, from a run's
     residuals; the holdout ones (finite-sample valid) must reach 0.7."""
@@ -648,10 +751,12 @@ def check_path(name, counts):
         raise AssertionError(f"kernels {missing} never launched on the {name} path")
 
 
-def time_train_step(what, model, batch, nvar, nx, ny, lr, device, seed):
-    """One train step of `model` through K4-K7 at `batch`: the launches of
-    one step (must be K4 240, K5 40, K6 120, K7 20) and the median ms of 5.
-    Returns the step function and its median ms."""
+def time_train_step(what, model, batch, nvar, nx, ny, lr, device, seed, t_in=T_IN, step=STEP,
+                    t_out=T_OUT):
+    """One train step of `model` through K4-K7 at `batch`, a rollout of
+    n = t_out // step steps: the launches of one step (must be K4 12 n, K5
+    2 n, K6 6 n, K7 n: K4 240, K5 40, K6 120, K7 20 at step 1, T_out 20)
+    and the median ms of 5. Returns the step function and its median ms."""
     import torch
     from cppre_torch.models import make_fused_train_apply
     from cppre_torch.ops import kernels as K
@@ -660,31 +765,31 @@ def time_train_step(what, model, batch, nvar, nx, ny, lr, device, seed):
 
     model = model.train()
     opt = make_optimizer(model.parameters(), lr)
-    step = make_train_step(make_fused_train_apply(model), opt, STEP, T_OUT, lp_loss)
+    train_step = make_train_step(make_fused_train_apply(model), opt, step, t_out, lp_loss)
     gen = torch.Generator(device=device).manual_seed(seed)
-    xx = torch.rand((batch, nvar, nx, ny, T_IN), generator=gen, device=device)
-    yy = torch.rand((batch, nvar, nx, ny, T_OUT), generator=gen, device=device)
-    step(xx, yy)
+    xx = torch.rand((batch, nvar, nx, ny, t_in), generator=gen, device=device)
+    yy = torch.rand((batch, nvar, nx, ny, t_out), generator=gen, device=device)
+    train_step(xx, yy)
     torch.cuda.synchronize()
     K.reset_launch_counts()
-    step(xx, yy)
+    train_step(xx, yy)
     torch.cuda.synchronize()
     per_step = K.launch_counts()
-    n = T_OUT // STEP
+    n = t_out // step
     want = {"K4": 2 * 6 * n, "K5": 2 * n, "K6": 6 * n, "K7": n}
     times = []
     for _ in range(5):
         t0 = time.perf_counter()
-        step(xx, yy)
+        train_step(xx, yy)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     step_ms = statistics.median(times)
-    say(what, batch=batch, step_ms_median=f"{step_ms:.2f}",
+    say(what, batch=batch, step=step, rollout_steps=n, step_ms_median=f"{step_ms:.2f}",
         step_ms=json.dumps([round(t, 2) for t in times]),
         launches_per_step=json.dumps(per_step, separators=(",", ":")))
     if any(per_step[k] != v for k, v in want.items()):
         raise AssertionError(f"{what}: launches per train step {per_step}, expected {want}")
-    return lambda: step(xx, yy), step_ms
+    return lambda: train_step(xx, yy), step_ms
 
 
 def phase_train(device):
@@ -787,34 +892,41 @@ def phase_parity(device):
 def phase_family(family, device):
     """`<family>.run("joint", Epochs=2)` at the full CONFIG, then the trained
     model served: CalibratedSurrogate(fused=True, score='aer+pre',
-    mode='joint') calibrated on the run's calibration inputs and predicting
-    its prediction inputs, the same calibration through K1 (and K9 for MHD)
-    within 1e-3 of the surrogate's qhat, and one train step. Returns the
-    launch counts of the whole phase."""
+    mode='joint', the family's step and T_out) calibrated on the run's
+    calibration inputs and predicting its prediction inputs, the same
+    calibration through K1 (and K9 for MHD) within 1e-3 of the surrogate's
+    qhat, for JOREK the explicit chunked K3 on the same inputs (bit for bit
+    K1's), and one train step. Returns the launch counts of the whole
+    phase."""
     import torch
     from cppre_torch.cp import calibrate
     from cppre_torch.deploy import CalibratedSurrogate
-    from cppre_torch.experiments import mhd, wave
+    from cppre_torch.experiments import jorek, mhd, wave
     from cppre_torch.ops import kernels as K
+    from cppre_torch.ops.kernels import stencil_kernels as sk
     from cppre_torch.residuals import PRE_Wave
 
-    mod = wave if family == "wave" else mhd
-    spec = WAVE if family == "wave" else MHD
+    mod = {"wave": wave, "mhd": mhd, "jorek": jorek}[family]
+    spec = {"wave": WAVE, "mhd": MHD, "jorek": JOREK}[family]
     cfg = {"Epochs": TRAIN_EPOCHS}
     c = dict(mod.CONFIG, **cfg)
+    t_in, step, t_out = c["T_in"], c["Step"], c["T_out"]
     captured = {}
-    gen_data = mod.gen_data
+    # the run's data, for the serving half: the solver's output, or JOREK's
+    # synthetic blobs (R, Z, t, fields)
+    maker = "synthetic_blobs" if family == "jorek" else "gen_data"
+    make_data = getattr(mod, maker)
 
-    def keep_data(*args, **kwargs):        # the run's data, for the serving half
-        out = gen_data(*args, **kwargs)
-        captured["data"], captured["dt"], captured["dx"] = out
+    def keep_data(*args, **kwargs):
+        out = make_data(*args, **kwargs)
+        captured["made"] = out
         return out
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
     K.reset_launch_counts()
     torch.cuda.synchronize()
-    mod.gen_data = keep_data
+    setattr(mod, maker, keep_data)
     try:
         t0 = time.perf_counter()
         out = mod.run("joint", config=cfg, seed=SEED, verbose=False, device=device,
@@ -822,37 +934,45 @@ def phase_family(family, device):
         torch.cuda.synchronize()
         t_run = time.perf_counter() - t0
     finally:
-        mod.gen_data = gen_data
+        setattr(mod, maker, make_data)
     run_counts = K.launch_counts()
     peak_run = torch.cuda.max_memory_allocated(device)
     residual_kernel = "K8" if family == "wave" else "K2"
     if run_counts[residual_kernel] != 4:
         raise AssertionError(f"{family}.run launched {residual_kernel} "
                              f"{run_counts[residual_kernel]} times, expected 4")
-    out["eps"] = EPS if family == "mhd" else 0.0
+    out["eps"] = 0.0 if family == "wave" else EPS
     first, last = check_losses(out["train_losses"], family)
-    data = captured["data"]
+    if family == "jorek":
+        R = captured["made"][0]
+        data = torch.as_tensor(captured["made"][3], device=device)
+    else:
+        data, dt, dx = captured["made"]
     say(family, sims=data.shape[0], data_shape=list(data.shape),
-        rollout_shape=list(out["pred_cal"].shape[1:]),
-        solver_s=f"{out['data_time']:.2f}", train_s=f"{out['train_time']:.2f}",
+        rollout_shape=list(out["pred_cal"].shape[1:]), t_in=t_in, step=step, t_out=t_out,
+        **{"data_s" if family == "jorek" else "solver_s": f"{out['data_time']:.2f}"},
+        train_s=f"{out['train_time']:.2f}",
         run_s=f"{t_run:.2f}", epochs=len(out["train_losses"]),
         steps_per_epoch=c["n_train"] // c["Batch Size"], loss_first=f"{first:.6f}",
         loss_last=f"{last:.6f}", qhat=f"{float(out['qhat']):.6e}",
         coverage_alpha_0_1=coverage_at_alpha(out), peak_gb=f"{peak_run / 1e9:.2f}",
         launches=json.dumps(run_counts, separators=(",", ":")))
 
-    # ---- the trained model served, then calibrated through K1 (and K9) ----
+    # ---- the trained model served, then calibrated through K1 (and K9, K3) ----
     n_train, n_cal, n_pred = c["n_train"], c["n_cal"], c["n_pred"]
     cal = slice(n_train, n_train + n_cal)
-    cal_a, cal_u = data[cal, ..., :T_IN], data[cal, ..., T_IN:T_IN + T_OUT]
-    new_a = data[n_train + n_cal:n_train + n_cal + n_pred, ..., :T_IN]
+    cal_a, cal_u = data[cal, ..., :t_in], data[cal, ..., t_in:t_in + t_out]
+    new_a = data[n_train + n_cal:n_train + n_cal + n_pred, ..., :t_in]
     if family == "wave":
-        kern = PRE_Wave(captured["dt"], captured["dx"], c["c"]).D.kernel
+        kern = PRE_Wave(dt, dx, c["c"]).D.kernel
         residual_fn = lambda f: K.wave_residual_fused(f[:, 0], kern)
-    else:
+    elif family == "mhd":
         residual_fn = lambda f: K.mhd_residual_fused(f, c["equation"])
+    else:
+        coef = dict(Dc=c["D"], K=c["K"], equation=c["equation"])
+        residual_fn = lambda f: K.jorek_residual_fused(f, R, **coef)
     in_n, out_n = out["normalizers"]
-    srv = CalibratedSurrogate(out["model"].eval(), residual_fn, step=STEP, T_out=T_OUT,
+    srv = CalibratedSurrogate(out["model"].eval(), residual_fn, step=step, T_out=t_out,
                               in_normalizer=in_n, out_normalizer=out_n, mode="joint",
                               score="aer+pre", fused=True)
     torch.cuda.synchronize()
@@ -865,7 +985,7 @@ def phase_family(family, device):
     torch.cuda.synchronize()
     t_pred = time.perf_counter() - t0
     pred = served["prediction"]
-    want_shape = (n_pred, spec["nvar"], spec["nx"], spec["ny"], T_OUT)
+    want_shape = (n_pred, spec["nvar"], spec["nx"], spec["ny"], t_out)
     if tuple(pred.shape) != want_shape or not bool(torch.isfinite(pred).all()):
         raise AssertionError(f"{family}: served prediction {tuple(pred.shape)} is not "
                              f"finite {want_shape}")
@@ -878,13 +998,27 @@ def phase_family(family, device):
     routes = {}
     if family == "wave":
         routes["k1"] = K.wave_joint_cp_scores_fused(truth_c[:, 0], pred_c[:, 0], kern, eps=EPS)
-    else:
+    elif family == "mhd":
         routes["k1"] = K.mhd_induction_joint_cp_scores_fused(truth_c, pred_c, eps=EPS)
         routes["k9"] = K.mhd_induction_joint_cp_scores_fused(truth_c, pred_c, eps=EPS,
                                                              single_pass=True)
+    else:
+        routes["k1"] = K.jorek_joint_cp_scores_fused(truth_c, pred_c, R, eps=EPS, **coef)
+        chunked = K.jorek_joint_cp_diff_stats_chunked(truth_c, pred_c, R, **coef)
     torch.cuda.synchronize()
     counts = K.launch_counts()
     check_path(family, counts)
+    extra = {}
+    if family == "jorek":
+        # K3's explicit entry against K1 on the same inputs, bit for bit, the
+        # centred pass too
+        cell = sk._jorek_cell(R, c["D"], c["K"], c["equation"])
+        k1 = sk._joint_cp_diff_stats(truth_c, pred_c, cell, centred=True)
+        same_bits("K3 vs K1 JOREK calibration", chunked, k1[:3])
+        same_bits("K3 vs K1 JOREK calibration, centred", k1,
+                  sk._joint_cp_diff_stats_chunked(truth_c, pred_c, cell, centred=True))
+        extra = {"k3_vs_k1_bitwise": True, "calibration_shape": json.dumps(list(truth_c.shape))}
+        del chunked, k1
     qh = {k: float(calibrate(v, n_cal, ALPHA)) for k, v in routes.items()}
     rel = {k: abs(v - qhat) / qhat for k, v in qh.items()}
     say(f"{family}-serve", qhat_surrogate=f"{qhat:.6e}",
@@ -892,7 +1026,7 @@ def phase_family(family, device):
         **{f"rel_{k}": f"{v:.3e}" for k, v in rel.items()},
         accept_rate=f"{float(served['accept'].float().mean()):.3f}",
         calibrate_s=f"{t_cal:.3f}", predict_s=f"{t_pred:.3f}",
-        peak_gb=f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f}",
+        peak_gb=f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f}", **extra,
         launches=json.dumps(counts, separators=(",", ":")))
     bad = {k: v for k, v in rel.items() if v > 1e-3}
     if bad:
@@ -901,11 +1035,11 @@ def phase_family(family, device):
     del out, data, captured, srv, served, pred, truth_c, pred_c, routes, cal_a, cal_u, new_a
     torch.cuda.empty_cache()
 
-    step, step_ms = time_train_step(f"{family}-step", model, spec["batch"], spec["nvar"],
-                                    spec["nx"], spec["ny"], c["Learning Rate"], device,
-                                    SEED + 30)
-    profile_step(step, step_ms, f"one {family} train step")
-    del model, step
+    step_fn, step_ms = time_train_step(f"{family}-step", model, spec["batch"], spec["nvar"],
+                                       spec["nx"], spec["ny"], c["Learning Rate"], device,
+                                       SEED + 30, t_in, step, t_out)
+    profile_step(step_fn, step_ms, f"one {family} train step")
+    del model, step_fn
     torch.cuda.empty_cache()
     return counts
 
@@ -954,6 +1088,15 @@ def phase_scaling(results, device):
             routed_plain = lambda: K.mhd_induction_joint_cp_scores_plain(truth, pred, eps=EPS)
             in_bytes = 2 * MHD_FIELDS["induction"] * nbytes(truth) // 6
             flops = 2 * MHD_RES_FLOPS["induction"] + 1 + 4
+        elif family == "jorek":
+            R = jorek_r(shape[3])
+            res, t5, p5 = sk._jorek_cell(R, 3.4, 2.25e-7, "continuity"), truth, pred
+            chunked = lambda tb=5: K.jorek_joint_cp_diff_stats_chunked(truth, pred, R, t_block=tb)
+            plain = lambda: K.jorek_joint_cp_diff_stats_chunked_plain(truth, pred, R)
+            routed = lambda: K.jorek_joint_cp_scores_fused(truth, pred, R, eps=EPS)
+            routed_plain = lambda: K.jorek_joint_cp_scores_plain(truth, pred, R, eps=EPS)
+            in_bytes = 2 * JOREK_FIELDS["continuity"] * nbytes(truth) // 3 + R.nbytes
+            flops = 2 * JOREK_RES_FLOPS["continuity"] + 1 + 4
         else:
             res, t5, p5 = sk._taps_cell(kern), truth[:, None], pred[:, None]
             chunked = lambda tb=5: K.wave_joint_cp_diff_stats_chunked(truth, pred, kern,
@@ -1218,6 +1361,7 @@ def main():
     results = phase_kernels(model, device)
     phase_kernels_wave(results, device)
     phase_kernels_mhd(results, device)
+    phase_kernels_jorek(results, device)
 
     # ---- NS serve: the main path ----------------------------------------
     data_np, _ = smooth_fields(N_ALL, T_IN + T_OUT, NX, NY, SEED + 3, layout="fno")
@@ -1304,7 +1448,8 @@ def main():
     phase_parity(device)
     windows = {"ns": {k: serve_counts[k] + train_counts[k] for k in serve_counts},
                "wave": phase_family("wave", device),
-               "mhd": phase_family("mhd", device)}
+               "mhd": phase_family("mhd", device),
+               "jorek": phase_family("jorek", device)}
     windows.update(phase_scaling(results, device))
     windows.update(phase_flat(results, device))
 
@@ -1318,6 +1463,11 @@ def main():
              ("K3", "scaling-ns"): "ns_joint_cp_diff_stats_chunked",
              ("K3", "scaling-mhd"): "mhd_joint_cp_diff_stats_chunked",
              ("K3", "scaling-wave"): "wave_joint_cp_diff_stats_chunked",
+             ("K3", "scaling-jorek"): "jorek_joint_cp_diff_stats_chunked",
+             ("K1", "scaling-jorek"): "jorek_joint_cp_scores_fused",
+             ("K1", "jorek"): "jorek_joint_cp_scores_fused",
+             ("K2", "jorek"): "jorek_residual_fused",
+             ("K3", "jorek"): "jorek_joint_cp_diff_stats_chunked",
              ("K1", "scaling-ns"): "ns_joint_cp_diff_stats",
              ("K1", "scaling-mhd"): "mhd_joint_cp_diff_stats",
              ("K1", "scaling-wave"): "wave_joint_cp_diff_stats",

@@ -131,14 +131,15 @@ struct FlatLaunch {
 // which: 10 (a truth, b prediction -> out |d|, sum, sumsq), 11 (a fields ->
 // out residual; b, sum, sumsq unused), 12 (a prediction, b the truth's
 // residual -> out |d|, sum, sumsq). kind and the cell arguments as in
-// stencil_kernels.cu (3-wide cells only; a tap table built for [Nt, Nx, Ny]).
+// stencil_kernels.cu (3-wide cells only; a tap table built for [Nt, Nx, Ny];
+// the JOREK kinds, which the JAX package has no flat instance of, are refused).
 // off: the flat window's margin, Ny or Ny + 1; Lo = Nx * Ny - 2 off.
 CPPRE_EXPORT int cppre_flat_kernel(int which, int kind, const void* a, const void* b, void* out,
                                    void* sum, void* sumsq, int bs, int nvar, int nt, int nx,
                                    int ny, int off, float cxy, float cty, float ctx, float nu,
                                    float dt, const void* tap_off, const void* tap_w, int ntaps,
-                                   void* stream) {
-    const CellArgs c{kind, cxy, cty, ctx, nu, dt, tap_off, tap_w, ntaps};
+                                   const void* rows, float dc, float kc, void* stream) {
+    const CellArgs c{kind, cxy, cty, ctx, nu, dt, tap_off, tap_w, ntaps, rows, dc, kc};
     const int lo = nx * ny - 2 * off;
     if (lo <= 0 || off < ny || off > ny + 1) return (int)cudaErrorInvalidValue;
     return with_cell(c, FlatLaunch{which, (const float*)a, (const float*)b, (float*)out,

@@ -128,7 +128,7 @@ __global__ void fno_block_out_kernel(const float* __restrict__ x, const float* _
 
 // ---- K5: projection head -----------------------------------------------------
 // z [npix, W]; a1 [wp, W]; b1 [wp]; a2 [step, wp]; b2 [step]; out [npix, step].
-constexpr int kMaxStep = 8;
+constexpr int kMaxStep = 10;   // every FNO2d configuration of the JAX package (JOREK: 10)
 
 template <int W>
 __global__ void projection_kernel(const float* __restrict__ z, const float* __restrict__ a1,

@@ -348,7 +348,7 @@ cudaError_t launch_bwd_row(const float* x, const float* g, const float* x3, cons
 }
 
 // ---- K7: projection head backward --------------------------------------------
-constexpr int kMaxStep = 8;
+constexpr int kMaxStep = 10;
 constexpr int kProjTile = 32;
 constexpr int kProjBwdBlocks = 528;   // fixed: 4 per SM of an H100, one wave
 
@@ -522,7 +522,7 @@ CPPRE_EXPORT int cppre_fno_block2d_bwd(
                                    s);
 }
 
-// Projection head backward; npix = B*V*Nx*Ny, 1 <= step <= 8, wp <= 1024.
+// Projection head backward; npix = B*V*Nx*Ny, 1 <= step <= 10, wp <= 1024.
 CPPRE_EXPORT int cppre_projection2d_bwd(const void* z, const void* g, const void* a1,
                                         const void* b1, const void* a2, void* dz, void* partial,
                                         void* red, long long npix, int W, int wp, int step,

@@ -1,5 +1,6 @@
 // The residual cells of the PRE stencil kernels, shared by
 // stencil_kernels.cu (K1, K2, K3, K8, K9) and flat_kernels.cu (K10-K12).
+// The JOREK cells run in K1, K2 and K3 only (`with_cell<true>`).
 //
 // A cell evaluates one residual at one output cell of one sample:
 // cell(f, g, t, x, y) reads the fields of a sample at base f with the
@@ -14,7 +15,7 @@
 // The policy changes how a value is fetched, never the arithmetic.
 //
 // Term order follows the JAX math (cppre/ops/pallas/stencil_kernels.py
-// _ns_momentum_math, _mhd_math, _taps); the tap table accumulates with
+// _ns_momentum_math, _mhd_math, _jorek_math, _taps); the tap table accumulates with
 // explicit round-to-nearest multiplies and adds (no FMA contraction), the
 // arithmetic of `stencil_shift_add`.
 #pragma once
@@ -115,10 +116,14 @@ struct NsMomentum {
 
 // The selectable ideal-MHD residuals (_mhd_math) over the six fields
 // (rho, u, v, p, Bx, By); each reads only the fields its equation uses.
-enum Kind { kNsMomentum = 0, kContinuity, kMomentum, kEnergy, kInduction, kGauss, kTaps };
+enum Kind {
+    kNsMomentum = 0, kContinuity, kMomentum, kEnergy, kInduction, kGauss, kTaps,
+    kJorekContinuity, kJorekTemperature
+};
 
 constexpr float kGamma = (float)(5.0 / 3.0);
 constexpr float kGammaMinus2 = (float)(5.0 / 3.0 - 2.0);
+constexpr float kTwoGamma = (float)(2.0 * 5.0 / 3.0);
 
 template <int EQ>
 struct Mhd {
@@ -158,6 +163,61 @@ struct Mhd {
     }
 };
 
+// The JOREK reduced-MHD residuals (_jorek_math) over (rho, Phi, T) in
+// cylindrical geometry: the R-weighted Poisson bracket [a, b] = a_x b_y -
+// b_x a_y, 1/R terms and gamma = 5/3. R comes from a device table of the
+// input grid's Nx major radii, r[x + 1] for interior row x, so any grid
+// works, affine or not (cppre rebuilds an affine R from iota in its kernel,
+// since Pallas cannot capture an array). The table is read through __ldg
+// whatever the source policy: it is not part of a staged window. A window
+// that starts at input row x0 takes the table from r + x0 (`at_rows`).
+template <int EQ>
+struct Jorek {
+    const float* __restrict__ r;
+    float dc;  // continuity: the diffusion coefficient D
+    float kc;  // temperature: the conductivity K
+
+    template <class Src = FromGlobal>
+    __device__ __forceinline__ float operator()(const float* __restrict__ f, const Geom& g,
+                                                int t, int x, int y, Src = Src()) const {
+        const long long i0 = centre(g, t, x, y);
+        auto F = [&](int var) { return d3<Src>(f + var * g.field, i0, g); };
+        auto d_xx = [&](int var) {
+            const float* a = f + var * g.field + i0;
+            return Src::ld(a + g.ny) - 2.0f * Src::ld(a) + Src::ld(a - g.ny);
+        };
+        auto d_yy = [&](int var) {
+            const float* a = f + var * g.field + i0;
+            return Src::ld(a + 1) - 2.0f * Src::ld(a) + Src::ld(a - 1);
+        };
+        const float rr = __ldg(r + x + 1);
+        const float inv_r = 1.0f / rr;
+        if constexpr (EQ == kJorekContinuity) {
+            const D3 rho = F(0), phi = F(1);
+            const float br = rho.x * phi.y - phi.x * rho.y;
+            return rho.t - rr * br - 2.0f * rho.c * phi.y
+                   - dc * (d_xx(0) + inv_r * rho.x + d_yy(0));
+        } else {  // kJorekTemperature
+            const D3 rho = F(0), phi = F(1), T = F(2);
+            const float br_t = T.x * phi.y - phi.x * T.y;
+            const float br_rho = rho.x * phi.y - phi.x * rho.y;
+            return T.c * rho.t + rho.c * T.t - rho.c * rr * br_t + T.c * rr * br_rho
+                   + kTwoGamma * rho.c * T.c * phi.y + kc * (d_xx(2) + inv_r * T.x + d_yy(2));
+        }
+    }
+};
+
+// A cell for a window whose row 0 is input row x0: the same cell, except
+// JOREK's, whose R table moves with the window.
+template <class Cell>
+__device__ __forceinline__ Cell at_rows(const Cell& c, int) {
+    return c;
+}
+template <int EQ>
+__device__ __forceinline__ Jorek<EQ> at_rows(const Jorek<EQ>& c, int x0) {
+    return Jorek<EQ>{c.r + x0, c.dc, c.kc};
+}
+
 // A constant stencil as a table of its non-zero taps, in the order of
 // `_taps` (itertools.product, zeros dropped): off[i] is the tap's linear
 // offset from the cell's (0, 0, 0) corner, w[i] its float32 weight. The
@@ -188,6 +248,8 @@ inline unsigned cell_vars(int kind) {
         case kMomentum: case kEnergy: return 0x3fu;   // all six
         case kInduction: return 0x36u;                // u, v, Bx, By
         case kGauss: return 0x30u;                    // Bx, By
+        case kJorekContinuity: return 0x3u;           // rho, Phi
+        case kJorekTemperature: return 0x7u;          // rho, Phi, T
         default: return 0x1u;                         // the tap table's one field
     }
 }
@@ -198,10 +260,14 @@ struct CellArgs {
     const void* tap_off;
     const void* tap_w;
     int ntaps;
+    const void* rows;  // JOREK: the float32 table of the input grid's Nx major radii
+    float dc, kc;      // JOREK: D and K
 };
 
-// Call launch(cell) with the cell that `a.kind` names.
-template <class Launch>
+// Call launch(cell) with the cell that `a.kind` names. The JOREK cells are
+// instantiated only where kJorek is true (K1, K2, K3, the kernels the JAX
+// package has JOREK instances of); elsewhere their kinds are refused.
+template <bool kJorek = false, class Launch>
 int with_cell(const CellArgs& a, const Launch& launch) {
     switch (a.kind) {
         case kNsMomentum: return launch(NsMomentum{a.cxy, a.cty, a.ctx, a.nu, a.dt});
@@ -212,6 +278,18 @@ int with_cell(const CellArgs& a, const Launch& launch) {
         case kGauss: return launch(Mhd<kGauss>{});
         case kTaps:
             return launch(Taps{(const int*)a.tap_off, (const float*)a.tap_w, a.ntaps});
+        case kJorekContinuity:
+        case kJorekTemperature:
+            if constexpr (kJorek) {
+                const float* r = (const float*)a.rows;
+                if (r == nullptr) return (int)cudaErrorInvalidValue;
+                if (a.kind == kJorekContinuity) {
+                    return launch(Jorek<kJorekContinuity>{r, a.dc, a.kc});
+                }
+                return launch(Jorek<kJorekTemperature>{r, a.dc, a.kc});
+            } else {
+                return (int)cudaErrorInvalidValue;
+            }
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -10,14 +10,15 @@
 // Replaces the Pallas kernels of cppre/ops/pallas/stencil_kernels.py:
 //   K2  _batched_residual_fused: per sample, the interior residual,
 //       [BS, Nvar, Nt, Nx, Ny] -> [BS, Nt-2, Nx-2, Ny-2]. Cells: NS momentum
-//       (_ns_momentum_math) and the five ideal-MHD equations (_mhd_math).
+//       (_ns_momentum_math), the five ideal-MHD equations (_mhd_math) and
+//       the two JOREK equations (_jorek_math, R from a table).
 //   K8  fused_stencil_residual: a constant k^3 stencil (the wave composite
 //       D_tt - (c dt/dx)^2 D_xxyy) on the valid interior, optional |.|,
 //       [BS, Nt, Nx, Ny] -> [BS, Nt-k+1, Nx-k+1, Ny-k+1]. Cell: the tap table.
 //   K1  _joint_cp_diff_stats: diff = PRE(truth) - PRE(pred) per sample, plus
 //       per-cell sum and sum of squares over the batch, and on request the
 //       centred sum of squares (see below). Cells: NS momentum, MHD
-//       induction (and any other MHD equation), the tap table.
+//       induction (and any other MHD equation), JOREK, the tap table.
 //   K3  _joint_cp_diff_stats_chunked: K1's outputs for 3-wide cells, with
 //       each block's window of the inputs staged in shared memory (below).
 //   K9  _joint_cp_scores_single_pass: scores[b] = max over cells of
@@ -225,6 +226,8 @@ diff_stats_chunked_kernel(const float* __restrict__ truth, const float* __restri
     const int x = x0 + lx, y = y0 + ly;
     const bool live = x < g.ox && y < g.oy;
     const long long ncell = (long long)g.ot * g.ox * g.oy;
+    // window row lx is input row x0 + lx (JOREK's R table moves with it)
+    const Cell wcell = at_rows(cell, x0);
 
     // the window's strides, as the cell reads them: one slot of tb + 2
     // frames per variable; (slot s, tensor k) at smem + (2 s + k) w.sample
@@ -262,8 +265,8 @@ diff_stats_chunked_kernel(const float* __restrict__ truth, const float* __restri
 #pragma unroll
             for (int k = 0; k < kChunkMaxTb; ++k) {
                 if (k < tb_c) {
-                    const float d = cell(wt, w, k, lx, ly, FromShared())
-                                    - cell(wp, w, k, lx, ly, FromShared());
+                    const float d = wcell(wt, w, k, lx, ly, FromShared())
+                                    - wcell(wp, w, k, lx, ly, FromShared());
                     diff[(long long)b * ncell + ((long long)(t0 + k) * g.ox + x) * g.oy + y] = d;
                     s[k] += d;
                     q[k] += d * d;
@@ -452,16 +455,20 @@ struct ScoresLaunch {
 
 // kind: 0 NS momentum (cxy..dt its constants), 1-5 the MHD continuity,
 // momentum, energy, induction and gauss residuals, 6 a tap table
-// (tap_off int32 [ntaps], tap_w float32 [ntaps], on the device). k is the
-// stencil's extent (3 for kinds 0-5).
+// (tap_off int32 [ntaps], tap_w float32 [ntaps], on the device), 7-8 the
+// JOREK continuity and temperature residuals (rows float32 [nx], the major
+// radius of each input row, on the device; dc and kc JOREK's D and K; K1,
+// K2 and K3 only, kinds 7-8 are refused by K9). k is the stencil's extent
+// (3 for kinds 0-5 and 7-8).
 
 CPPRE_EXPORT int cppre_stencil_residual(int kind, const void* fields, void* out, int bs,
                                         int nvar, int nt, int nx, int ny, int k, float cxy,
                                         float cty, float ctx, float nu, float dt,
                                         const void* tap_off, const void* tap_w, int ntaps,
-                                        int take_abs, void* stream) {
-    const CellArgs a{kind, cxy, cty, ctx, nu, dt, tap_off, tap_w, ntaps};
-    return with_cell(a, ResidualLaunch{(const float*)fields, (float*)out, bs,
+                                        const void* rows, float dc, float kc, int take_abs,
+                                        void* stream) {
+    const CellArgs a{kind, cxy, cty, ctx, nu, dt, tap_off, tap_w, ntaps, rows, dc, kc};
+    return with_cell<true>(a, ResidualLaunch{(const float*)fields, (float*)out, bs,
                                        make_geom(nvar, nt, nx, ny, k), take_abs,
                                        (cudaStream_t)stream});
 }
@@ -472,25 +479,28 @@ CPPRE_EXPORT int cppre_joint_cp_diff_stats(int kind, const void* truth, const vo
                                            void* m2, int bs, int nvar, int nt, int nx, int ny,
                                            int k, float cxy, float cty, float ctx, float nu,
                                            float dt, const void* tap_off, const void* tap_w,
-                                           int ntaps, void* stream) {
-    const CellArgs a{kind, cxy, cty, ctx, nu, dt, tap_off, tap_w, ntaps};
-    return with_cell(a, DiffStatsLaunch{(const float*)truth, (const float*)pred, diff,
+                                           int ntaps, const void* rows, float dc, float kc,
+                                           void* stream) {
+    const CellArgs a{kind, cxy, cty, ctx, nu, dt, tap_off, tap_w, ntaps, rows, dc, kc};
+    return with_cell<true>(a, DiffStatsLaunch{(const float*)truth, (const float*)pred, diff,
                                         diff_bf16, (float*)sum, (float*)sumsq, (float*)m2, bs,
                                         make_geom(nvar, nt, nx, ny, k), (cudaStream_t)stream});
 }
 
-// K3 for 3-wide cells (kinds 0-6; a tap table built for the window's
-// strides, frames of 10 x 34). t_block: interior frames per chunk, 1..8, such
-// that the window fits shared memory. m2 may be null.
+// K3 for 3-wide cells (kinds 0-8; a tap table built for the window's
+// strides, frames of 10 x 34; JOREK's rows table for the input grid).
+// t_block: interior frames per chunk, 1..8, such that the window fits
+// shared memory. m2 may be null.
 CPPRE_EXPORT int cppre_joint_cp_diff_stats_chunked(int kind, const void* truth, const void* pred,
                                                    void* diff, void* sum, void* sumsq, void* m2,
                                                    int bs, int nvar, int nt, int nx, int ny,
                                                    int t_block, float cxy, float cty, float ctx,
                                                    float nu, float dt, const void* tap_off,
-                                                   const void* tap_w, int ntaps, void* stream) {
-    const CellArgs a{kind, cxy, cty, ctx, nu, dt, tap_off, tap_w, ntaps};
+                                                   const void* tap_w, int ntaps, const void* rows,
+                                                   float dc, float kc, void* stream) {
+    const CellArgs a{kind, cxy, cty, ctx, nu, dt, tap_off, tap_w, ntaps, rows, dc, kc};
     const unsigned vars = nvar >= 32 ? cell_vars(kind) : cell_vars(kind) & ((1u << nvar) - 1u);
-    return with_cell(a, ChunkedLaunch{(const float*)truth, (const float*)pred, (float*)diff,
+    return with_cell<true>(a, ChunkedLaunch{(const float*)truth, (const float*)pred, (float*)diff,
                                       (float*)sum, (float*)sumsq, (float*)m2, bs,
                                       make_geom(nvar, nt, nx, ny, 3), t_block, vars, nvar,
                                       (cudaStream_t)stream});
@@ -501,9 +511,10 @@ CPPRE_EXPORT int cppre_joint_cp_scores_single_pass(int kind, const void* truth,
                                                    int nvar, int nt, int nx, int ny, int k,
                                                    float cxy, float cty, float ctx, float nu,
                                                    float dt, const void* tap_off,
-                                                   const void* tap_w, int ntaps, float eps,
-                                                   void* stream) {
-    const CellArgs a{kind, cxy, cty, ctx, nu, dt, tap_off, tap_w, ntaps};
+                                                   const void* tap_w, int ntaps,
+                                                   const void* rows, float dc, float kc,
+                                                   float eps, void* stream) {
+    const CellArgs a{kind, cxy, cty, ctx, nu, dt, tap_off, tap_w, ntaps, rows, dc, kc};
     return with_cell(a, ScoresLaunch{(const float*)truth, (const float*)pred,
                                      (unsigned int*)scores, bs, make_geom(nvar, nt, nx, ny, k),
                                      eps, (cudaStream_t)stream});

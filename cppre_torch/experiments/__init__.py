@@ -1,1 +1,16 @@
-"""CP experiment engine (the per-PDE experiment scripts come with the solvers)."""
+"""CP experiments, one module per PDE family (`ns`, `wave`, `mhd`,
+`jorek`), over the shared engine (`base2d.run_2d_cp`, `pipeline`).
+
+The family modules load on first access (`cppre_torch.experiments.jorek`),
+so `python -m cppre_torch.experiments.<family>` runs each as a script.
+"""
+
+import importlib
+
+__all__ = ["jorek", "mhd", "ns", "pipeline", "wave"]
+
+
+def __getattr__(name):
+    if name in __all__:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,9 +1,9 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
 
 | kernel | counter (launches of every instance) | instances | replaces |
-| K1 | `_joint_cp_diff_stats` | `ns_/wave_/mhd_joint_cp_diff_stats`, the `*_joint_cp_scores_fused` entries | `stencil_kernels._joint_cp_diff_stats` |
-| K2 | `_batched_residual_fused` | `ns_momentum_residual_fused`, `mhd_residual_fused` (5 equations), `mhd_induction_residual_fused` | `stencil_kernels._batched_residual_fused` |
-| K3 | `_joint_cp_diff_stats_chunked` | `ns_/wave_/mhd_joint_cp_diff_stats_chunked`, the routed K1 entries where `routing_decision` says 'chunked' | `stencil_kernels._joint_cp_diff_stats_chunked` |
+| K1 | `_joint_cp_diff_stats` | `ns_/wave_/mhd_joint_cp_diff_stats`, the `*_joint_cp_scores_fused` entries (JOREK's too) | `stencil_kernels._joint_cp_diff_stats` |
+| K2 | `_batched_residual_fused` | `ns_momentum_residual_fused`, `mhd_residual_fused` (5 equations), `mhd_induction_residual_fused`, `jorek_residual_fused` (2 equations) | `stencil_kernels._batched_residual_fused` |
+| K3 | `_joint_cp_diff_stats_chunked` | `ns_/wave_/mhd_/jorek_joint_cp_diff_stats_chunked`, the routed K1 entries where `routing_decision` says 'chunked' | `stencil_kernels._joint_cp_diff_stats_chunked` |
 | K4 | `fno_block2d_fused` | itself | `fno_block.fno_block2d_fused` |
 | K5 | `projection2d_fused` | itself | `fno_block.projection2d_fused` |
 | K6 | `fno_block2d_bwd_fused` | itself | `fno_block.fno_block2d_bwd_fused` |
@@ -46,6 +46,7 @@ from .flat_kernels import (
     wave_joint_cp_scores_flat_plain,
 )
 from .stencil_kernels import (
+    JOREK_EQUATIONS,
     MHD_EQUATIONS,
     _batched_residual_fused,
     _joint_cp_diff_stats,
@@ -53,6 +54,12 @@ from .stencil_kernels import (
     _joint_cp_scores_single_pass,
     fused_stencil_residual,
     fused_stencil_residual_plain,
+    jorek_joint_cp_diff_stats_chunked,
+    jorek_joint_cp_diff_stats_chunked_plain,
+    jorek_joint_cp_scores_fused,
+    jorek_joint_cp_scores_plain,
+    jorek_residual_fused,
+    jorek_residual_plain,
     mhd_induction_joint_cp_scores_fused,
     mhd_induction_joint_cp_scores_plain,
     mhd_induction_residual_fused,
@@ -107,6 +114,7 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "JOREK_EQUATIONS",
     "KERNELS",
     "MHD_EQUATIONS",
     "flat_routing_decision",
@@ -117,6 +125,12 @@ __all__ = [
     "fno_kernel_limits",
     "fused_stencil_residual",
     "fused_stencil_residual_plain",
+    "jorek_joint_cp_diff_stats_chunked",
+    "jorek_joint_cp_diff_stats_chunked_plain",
+    "jorek_joint_cp_scores_fused",
+    "jorek_joint_cp_scores_plain",
+    "jorek_residual_fused",
+    "jorek_residual_plain",
     "launch_counts",
     "mhd_induction_joint_cp_scores_fused",
     "mhd_induction_joint_cp_scores_plain",

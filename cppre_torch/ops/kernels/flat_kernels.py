@@ -44,6 +44,7 @@ import torch
 
 from . import _build
 from .stencil_kernels import (
+    _CELL_TYPES,
     _cell_args,
     _check_pair,
     _mhd_cell,
@@ -64,7 +65,7 @@ __all__ = [
     "flat_routing_decision",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _composite_off(kernel, ny: int) -> int:
@@ -149,8 +150,7 @@ def _launch(which, a, b, out, s, sq, res: _Residual, ny: int, off: int, what: st
     cell, tables = _cell_args(res, (L // ny, ny), a.device)
     lib = _build.library("flat_kernels")
     fn = _build.declare(lib, "cppre_flat_kernel",
-                        [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _F, _F, _F, _P, _P, _I, _P])
+                        [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_CELL_TYPES, _P])
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(a.device):
         rc = fn(which, cell[0], a.data_ptr(), ptr(b), out.data_ptr(), ptr(s), ptr(sq),

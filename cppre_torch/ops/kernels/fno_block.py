@@ -58,7 +58,7 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 # widths of the register-resident stages, the head's widest output step, and
 # the shared memory of one block.
 KERNEL_WIDTHS = (4, 8, 16, 32)
-KERNEL_MAX_STEP = 8
+KERNEL_MAX_STEP = 10
 _SMEM_LIMIT = 227 * 1024
 
 
@@ -78,7 +78,7 @@ def fno_kernel_limits(width: int, step: int, nx: int, ny: int, m1: int, m2: int,
                       backward: bool = False) -> list[str]:
     """The limits of kernels K4 and K5 (with `backward`, also K6 and K7)
     that this configuration breaks, in words; empty when they take it. The
-    limits: a compiled width, 1 <= step <= 8, the modes within the one-sided
+    limits: a compiled width, 1 <= step <= 10, the modes within the one-sided
     spectrum (2*m1 <= Nx, m2 <= Ny//2+1), and the forward-DFT stage's plane
     and the per-row stage (K4's or K6's) within one block's shared memory."""
     broken = []

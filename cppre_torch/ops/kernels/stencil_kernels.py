@@ -2,16 +2,17 @@
 and K3 time-chunked) and the single-pass joint-CP scores (K9).
 
 Port of `cppre/ops/pallas/stencil_kernels.py`, with its public names and
-signatures. One CUDA source (`csrc/stencil_kernels.cu`) holds the kernels,
-each a template over a *cell*, the residual at one output cell: NS momentum,
-the five ideal-MHD equations, or a constant tap table (the wave composite
-kernel). Here a cell is a `_Residual`: its CUDA kind and arguments, and its
-plain PyTorch math, which is the plain version of every kernel it runs in.
+signatures (minus `interpret`). One CUDA source (`csrc/stencil_kernels.cu`)
+holds the kernels, each a template over a *cell*, the residual at one output
+cell: NS momentum, the five ideal-MHD equations, the two JOREK equations, or
+a constant tap table (the wave composite kernel). Here a cell is a
+`_Residual`: its CUDA kind and arguments, and its plain PyTorch math, which
+is the plain version of every kernel it runs in.
 
 * K2 `_batched_residual_fused`: fields [BS, Nvar, Nt, Nx, Ny] -> the
   interior residual [BS, Nt-2, Nx-2, Ny-2]. Instances
   `ns_momentum_residual_fused`, `mhd_residual_fused`,
-  `mhd_induction_residual_fused`.
+  `mhd_induction_residual_fused`, `jorek_residual_fused`.
 * K8 `fused_stencil_residual`: field [BS, Nt, Nx, Ny] and a constant odd
   k^3 kernel -> [BS, Nt-k+1, Nx-k+1, Ny-k+1], optionally |.|; the plain
   version is `stencil_shift_add(field, kernel, same=False)`.
@@ -24,10 +25,12 @@ plain PyTorch math, which is the plain version of every kernel it runs in.
 * K3 `_joint_cp_diff_stats_chunked`: K1's outputs for 3-wide cells, each
   block's time chunk and spatial tile staged in shared memory and walked
   over the batch in sample order, so its bits are K1's. Instances
-  `ns_/wave_/mhd_joint_cp_diff_stats_chunked` (the wave one for 3-wide
-  kernels only); `t_block` is cut to fit shared memory (`_chunk_t_block`).
-* The joint-CP scores [BS] (`ns_/wave_/mhd_induction_joint_cp_scores_fused`):
-  K1 (or K3, by `routing_decision`) followed by the `_scores_from_diff_stats`
+  `ns_/wave_/mhd_/jorek_joint_cp_diff_stats_chunked` (the wave one for
+  3-wide kernels only); `t_block` is cut to fit shared memory
+  (`_chunk_t_block`).
+* The joint-CP scores [BS]
+  (`ns_/wave_/mhd_induction_/jorek_joint_cp_scores_fused`): K1 (or K3, by
+  `routing_decision`) followed by the `_scores_from_diff_stats`
   epilogue in plain torch, as in the JAX package; or, with `single_pass=True` (NS and MHD entries), K9
   `_joint_cp_scores_single_pass`, one launch and no diff tensor. On the
   card `single_pass=True` always launches K9: its Hopper design stashes
@@ -49,6 +52,10 @@ entries (`*_joint_cp_diff_stats`, `*_joint_cp_scores_fused` two-pass) to K1
 ('paired') or K3 ('chunked'). K3 was slower than K1 at every shape timed on
 the card, so it says 'paired' throughout; cppre's 'composed' route answers
 a TPU VMEM limit that K1 does not have, and has no counterpart.
+
+The JOREK cell reads the major radius R of each row from a device table of
+the input grid's values, so any grid takes the kernels; cppre rebuilds an
+affine R inside its kernel and sends any other grid to XLA.
 
 Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. Each kernel counts its launches, every instance together,
@@ -95,12 +102,23 @@ __all__ = [
     "wave_joint_cp_diff_stats_chunked_plain",
     "mhd_joint_cp_diff_stats_chunked",
     "mhd_joint_cp_diff_stats_chunked_plain",
+    "jorek_residual_fused",
+    "jorek_residual_plain",
+    "jorek_joint_cp_scores_fused",
+    "jorek_joint_cp_scores_plain",
+    "jorek_joint_cp_diff_stats_chunked",
+    "jorek_joint_cp_diff_stats_chunked_plain",
     "routing_decision",
     "MHD_EQUATIONS",
+    "JOREK_EQUATIONS",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the C types of a cell's arguments after its kind: the five NS constants,
+# the tap table (offsets, weights, count), JOREK's rows table, D and K
+_CELL_TYPES = (_F, _F, _F, _F, _F, _P, _P, _I, _P, _F, _F)
 MHD_EQUATIONS = ("continuity", "momentum", "energy", "induction", "gauss")
+JOREK_EQUATIONS = ("continuity", "temperature")
 GAMMA = 5.0 / 3.0
 
 
@@ -118,6 +136,14 @@ def _d_x(a):
 
 def _d_y(a):
     return a[..., 1:-1, 1:-1, 2:] - a[..., 1:-1, 1:-1, :-2]
+
+
+def _d_xx(a):
+    return a[..., 1:-1, 2:, 1:-1] - 2.0 * _interior(a) + a[..., 1:-1, :-2, 1:-1]
+
+
+def _d_yy(a):
+    return a[..., 1:-1, 1:-1, 2:] - 2.0 * _interior(a) + a[..., 1:-1, 1:-1, :-2]
 
 
 def _d_lap(a):
@@ -184,20 +210,42 @@ def _mhd_math(equation, fields, ops=_GRID_OPS):
     return d_x(Bx) + d_y(By)
 
 
+def _jorek_math(equation, fields, R, Dc, K):
+    """The JOREK reduced-MHD residual `equation` on the interior window of
+    [BS, 3, Nt, NR, NZ] fields (rho, Phi, T), in the term order of
+    `cppre.ops.pallas.stencil_kernels._jorek_math`: R-weighted Poisson
+    brackets, 1/R terms, gamma = 5/3. R is the float32 1-D grid of the NR
+    major radii; the interior rows take R[1:-1]."""
+    rho, phi, T = fields[:, 0], fields[:, 1], fields[:, 2]
+    r = torch.as_tensor(R[1:-1], device=fields.device)[:, None]
+    I, d_t, d_x, d_y = _interior, _d_t, _d_x, _d_y
+    br = lambda a, b: d_x(a) * d_y(b) - d_x(b) * d_y(a)
+    if equation == "continuity":
+        return (d_t(rho) - r * br(rho, phi) - 2.0 * I(rho) * d_y(phi)
+                - Dc * (_d_xx(rho) + (1.0 / r) * d_x(rho) + _d_yy(rho)))
+    return (I(T) * d_t(rho) + I(rho) * d_t(T)
+            - I(rho) * r * br(T, phi) + I(T) * r * br(rho, phi)
+            + 2.0 * GAMMA * I(rho) * I(T) * d_y(phi)
+            + K * (_d_xx(T) + (1.0 / r) * d_x(T) + _d_yy(T)))
+
+
 # ---- cells --------------------------------------------------------------------
 
 class _Residual(NamedTuple):
     """One residual as the kernels take it: the CUDA cell kind (see
     `csrc/stencil_cells.cuh`), the fields it needs, the stencil extent k
     (outputs are N - k + 1 on each axis), the NS constants, the tap kernel,
-    and the plain math [BS, Nvar, Nt, Nx, Ny] -> [BS, *out] (for NS and MHD
-    it takes `ops=`, the window and derivatives of another layout)."""
+    JOREK's rows (the float32 major radius of each of the Nx rows) and its
+    (D, K), and the plain math [BS, Nvar, Nt, Nx, Ny] -> [BS, *out] (for NS
+    and MHD it takes `ops=`, the window and derivatives of another layout)."""
     kind: int
     nvar: int
     k: int
     math: Callable
     coef: tuple = (0.0,) * 5
     kernel: np.ndarray | None = None
+    rows: np.ndarray | None = None
+    jc: tuple = (0.0, 0.0)
 
 
 def _ns_cell(dt, dx, dy, nu):
@@ -210,6 +258,25 @@ def _mhd_cell(equation):
         raise ValueError(f"unknown MHD equation {equation!r}")
     return _Residual(1 + MHD_EQUATIONS.index(equation), 6, 3,
                      functools.partial(_mhd_math, equation))
+
+
+def _jorek_cell(R, Dc, K, equation):
+    """The JOREK cell: `equation` over the 1-D major-radius grid R (numpy,
+    a tensor, or [NR, 1]), D and K as float32."""
+    if equation not in JOREK_EQUATIONS:
+        raise ValueError(f"unknown JOREK equation {equation!r}")
+    if torch.is_tensor(R):
+        R = R.detach().cpu().numpy()
+    rows = np.asarray(R, np.float32)
+    if rows.ndim == 2 and rows.shape[1] == 1:
+        rows = rows[:, 0]
+    if rows.ndim != 1:
+        raise ValueError(f"R must be the 1-D major-radius grid (or [NR, 1]), got {rows.shape}")
+    rows = np.ascontiguousarray(rows)
+    dc, kc = float(np.float32(Dc)), float(np.float32(K))
+    return _Residual(7 + JOREK_EQUATIONS.index(equation), 3, 3,
+                     functools.partial(_jorek_math, equation, R=rows, Dc=dc, K=kc),
+                     rows=rows, jc=(dc, kc))
 
 
 def _taps_cell(kernel):
@@ -234,15 +301,26 @@ def _tap_table(kernel_bytes, k, dtype, nx, ny, device):
             torch.tensor(w, dtype=torch.float32, device=device))
 
 
+@functools.lru_cache(maxsize=32)
+def _rows_table(rows_bytes, device):
+    """JOREK's float32 major radii on `device`."""
+    return torch.tensor(np.frombuffer(rows_bytes, dtype=np.float32), device=device)
+
+
 def _cell_args(res: _Residual, shape, device):
-    """The cell arguments of the C interface: kind, the five NS constants,
-    the tap table (pointers and count, 0 for the fixed cells), and the
-    table's tensors, which the caller holds over the launch."""
-    if res.kernel is None:
-        return (res.kind, *res.coef, None, None, 0), ()
-    kern = np.ascontiguousarray(res.kernel)
-    off, w = _tap_table(kern.tobytes(), res.k, kern.dtype.str, shape[-2], shape[-1], device)
-    return (res.kind, *res.coef, off.data_ptr(), w.data_ptr(), off.numel()), (off, w)
+    """The cell arguments of the C interface (`_CELL_TYPES` after the
+    kind): kind, the five NS constants, the tap table (pointers and count,
+    0 for the other cells), JOREK's rows table and (D, K), and the tables'
+    tensors, which the caller holds over the launch."""
+    tables, taps, rows = (), (None, None, 0), (None, 0.0, 0.0)
+    if res.kernel is not None:
+        kern = np.ascontiguousarray(res.kernel)
+        off, w = _tap_table(kern.tobytes(), res.k, kern.dtype.str, shape[-2], shape[-1], device)
+        tables, taps = (off, w), (off.data_ptr(), w.data_ptr(), off.numel())
+    if res.rows is not None:
+        r = _rows_table(res.rows.tobytes(), device)
+        tables, rows = tables + (r,), (r.data_ptr(), *res.jc)
+    return (res.kind, *res.coef, *taps, *rows), tables
 
 
 def _check_fields(fields, res: _Residual, what):
@@ -250,6 +328,9 @@ def _check_fields(fields, res: _Residual, what):
             or min(fields.shape[2:]) < res.k):
         raise ValueError(f"{what}: expected [BS, Nvar>={res.nvar}, Nt, Nx, Ny] fields with "
                          f"every axis >= {res.k}, got {tuple(fields.shape)}")
+    if res.rows is not None and res.rows.shape[0] != fields.shape[3]:
+        raise ValueError(f"{what}: R has {res.rows.shape[0]} rows, the fields "
+                         f"{fields.shape[3]}")
 
 
 def _out_shape(shape, k):
@@ -266,8 +347,7 @@ def _launch_residual(fields, res: _Residual, take_abs: bool, what: str):
     cell, tables = _cell_args(res, fields.shape, fields.device)
     lib = _build.library("stencil_kernels")
     fn = _build.declare(lib, "cppre_stencil_residual",
-                        [_I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P, _I,
-                         _I, _P])
+                        [_I, _P, _P, _I, _I, _I, _I, _I, _I, *_CELL_TYPES, _I, _P])
     with torch.cuda.device(fields.device):
         rc = fn(cell[0], fields.data_ptr(), out.data_ptr(), bs, nvar, nt, nx, ny, res.k,
                 *cell[1:], int(take_abs), _build.stream_of(fields))
@@ -322,6 +402,24 @@ def mhd_residual_fused(fields, equation: str = "induction"):
 def mhd_induction_residual_fused(fields):
     """Fused ideal-MHD induction PRE (see `mhd_residual_fused`)."""
     return mhd_residual_fused(fields, "induction")
+
+
+def jorek_residual_plain(fields, R, Dc: float = 3.4, K: float = 2.25e-7,
+                         equation: str = "continuity"):
+    """Plain PyTorch `jorek_residual_fused`."""
+    res = _jorek_cell(R, Dc, K, equation)
+    _check_fields(fields, res, "jorek_residual")
+    return res.math(fields)
+
+
+def jorek_residual_fused(fields, R, Dc: float = 3.4, K: float = 2.25e-7,
+                         equation: str = "continuity"):
+    """Fused JOREK reduced-MHD PRE (kernel K2): fields [BS, 3, Nt, NR, NZ]
+    (rho, Phi, T), R the 1-D major-radius grid (any grid: the kernel reads
+    it from a table) -> interior residual [BS, Nt-2, NR-2, NZ-2], equal to
+    `PRE_JOREK(R, ...).residual(fields, equation, boundary=False)`."""
+    return _batched_residual_fused(fields, _jorek_cell(R, Dc, K, equation),
+                                   "jorek_residual_fused")
 
 
 def fused_stencil_residual_plain(field, kernel, take_abs: bool = False):
@@ -403,8 +501,7 @@ def _joint_cp_diff_stats(truth, prediction, res: _Residual, samples_per_block: i
     cell, tables = _cell_args(res, truth.shape, truth.device)
     lib = _build.library("stencil_kernels")
     fn = _build.declare(lib, "cppre_joint_cp_diff_stats",
-                        [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _F, _F, _F, _P, _P, _I, _P])
+                        [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_CELL_TYPES, _P])
     with torch.cuda.device(truth.device):
         rc = fn(cell[0], truth.data_ptr(), prediction.data_ptr(), diff.data_ptr(),
                 int(diff_dtype == torch.bfloat16), s.data_ptr(), sq.data_ptr(),
@@ -522,8 +619,7 @@ def _joint_cp_diff_stats_chunked(truth, prediction, res: _Residual, t_block: int
     cell, tables = _cell_args(res, _K3_WINDOW, truth.device)
     lib = _build.library("stencil_kernels")
     fn = _build.declare(lib, "cppre_joint_cp_diff_stats_chunked",
-                        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _F, _F, _F, _P, _P, _I, _P])
+                        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_CELL_TYPES, _P])
     with torch.cuda.device(truth.device):
         rc = fn(cell[0], truth.data_ptr(), prediction.data_ptr(), diff.data_ptr(),
                 s.data_ptr(), sq.data_ptr(), None if m2 is None else m2.data_ptr(),
@@ -592,6 +688,26 @@ def mhd_joint_cp_diff_stats_chunked_plain(truth, prediction, equation: str = "in
     return mhd_joint_cp_diff_stats_plain(truth, prediction, equation)
 
 
+def jorek_joint_cp_diff_stats_chunked(truth, prediction, R, Dc: float = 3.4, K: float = 2.25e-7,
+                                      equation: str = "continuity", t_block: int = 5):
+    """JOREK instance of K3: truth and prediction [BS, 3, Nt, NR, NZ] ->
+    (diff [BS, Nt-2, NR-2, NZ-2], sum, sumsq [Nt-2, NR-2, NZ-2]). The
+    window's rows take their R from the input grid's table, so a
+    non-affine R runs the kernel too."""
+    return _joint_cp_diff_stats_chunked(truth, prediction, _jorek_cell(R, Dc, K, equation),
+                                        t_block, what="jorek_joint_cp_diff_stats_chunked")[:3]
+
+
+def jorek_joint_cp_diff_stats_chunked_plain(truth, prediction, R, Dc: float = 3.4,
+                                            K: float = 2.25e-7, equation: str = "continuity",
+                                            t_block: int = 5):
+    """Plain PyTorch `jorek_joint_cp_diff_stats_chunked` (`t_block` only checked)."""
+    res = _jorek_cell(R, Dc, K, equation)
+    _check_pair(truth, prediction, res, "jorek_joint_cp_diff_stats_chunked")
+    _chunk_t_block(t_block, truth.shape[1], truth.shape[2] - 2)
+    return _diff_stats_plain(truth, prediction, res)[:3]
+
+
 # ---- routing: K1 or K3 --------------------------------------------------------------
 
 def routing_decision(shape, out_shape=None, has_chunked: bool = True) -> str:
@@ -653,8 +769,7 @@ def _joint_cp_scores_single_pass(truth, prediction, res: _Residual, eps: float,
     cell, tables = _cell_args(res, truth.shape, truth.device)
     lib = _build.library("stencil_kernels")
     fn = _build.declare(lib, "cppre_joint_cp_scores_single_pass",
-                        [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _F, _F, _F, _P, _P, _I, _F, _P])
+                        [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_CELL_TYPES, _F, _P])
     with torch.cuda.device(truth.device):
         rc = fn(cell[0], truth.data_ptr(), prediction.data_ptr(), bits.data_ptr(), bs, nvar,
                 nt, nx, ny, res.k, *cell[1:], float(np.float32(eps)),
@@ -737,3 +852,22 @@ def wave_joint_cp_scores_fused(truth, prediction, kernel, eps: float = 1e-6,
     (Nt-k+1, Nx-k+1, Ny-k+1))."""
     return _scores(truth[:, None], prediction[:, None], _taps_cell(kernel), eps,
                    samples_per_block, diff_dtype, False, "wave_joint_cp_scores_fused")
+
+
+def jorek_joint_cp_scores_plain(truth, prediction, R, Dc: float = 3.4, K: float = 2.25e-7,
+                                equation: str = "continuity", eps: float = 1e-6,
+                                diff_dtype=None):
+    """Plain PyTorch `jorek_joint_cp_scores_fused`."""
+    return _scores_plain(truth, prediction, _jorek_cell(R, Dc, K, equation), eps, diff_dtype,
+                         "jorek_joint_cp_scores")
+
+
+def jorek_joint_cp_scores_fused(truth, prediction, R, Dc: float = 3.4, K: float = 2.25e-7,
+                                equation: str = "continuity", eps: float = 1e-6,
+                                diff_dtype=None):
+    """Joint-CP nonconformity scores [BS] over a JOREK reduced-MHD PRE, one
+    read of each [BS, 3, Nt, NR, NZ] tensor: K1 (or K3, by
+    `routing_decision`) and the epilogue. R is the 1-D major-radius grid;
+    unlike cppre, a non-affine grid takes the kernel too."""
+    return _scores(truth, prediction, _jorek_cell(R, Dc, K, equation), eps, 1, diff_dtype,
+                   False, "jorek_joint_cp_scores_fused")

@@ -16,7 +16,8 @@ weight gradients, which are sums over every pixel of the batch taken in
 another order than autograd's. K9's scores agree with the two-pass route's
 within 1e-6 relative (the same cell forms each diff; the epilogue's
 arithmetic is repeated in the kernel). K3 equals K1, and K11 then K12 equal
-K10, bit for bit: each pair calls one cell in one batch order.
+K10, bit for bit: each pair calls one cell in one batch order. The JOREK
+cell runs in K1, K2 and K3 for affine and non-affine major-radius grids.
 """
 
 import numpy as np
@@ -91,7 +92,7 @@ def test_fno_block_kernel(dev, width, nx, ny, m1, m2):
                K.fno_block2d_plain(x, model.f1, x3, m1, m2), 1e-4)
 
 
-@pytest.mark.parametrize("width,step", [(4, 1), (16, 3), (32, 8)])
+@pytest.mark.parametrize("width,step", [(4, 1), (16, 3), (32, 8), (16, 10), (32, 10)])
 def test_projection_kernel(dev, width, step):
     model = FNO2d(1, step, 2, 2, 2, width, device=dev,
                   generator=torch.Generator().manual_seed(step))
@@ -168,7 +169,7 @@ def test_fno_block_bwd_kernel(dev, width, nx, ny, m1, m2):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("width,step", [(4, 1), (16, 3), (32, 8)])
+@pytest.mark.parametrize("width,step", [(4, 1), (16, 3), (32, 8), (16, 10), (32, 10)])
 def test_projection_bwd_kernel(dev, width, step):
     model = FNO2d(1, step, 2, 2, 2, width, device=dev,
                   generator=torch.Generator().manual_seed(step + 5))
@@ -312,6 +313,53 @@ def test_made_from_nothing_defaults_to_the_card(dev):
     assert mhd_solve_batch([[0.7, 0.8, 0.6]], 16, 1.0, 0.002, dt=1e-3, store_every=1)[0].is_cuda
 
 
+# ---- the JOREK instances of K2, K1 and K3 ----------------------------------------
+
+def _jorek_r(nx, affine=True):
+    """A major-radius grid over [2.6, 3.4] (the JOREK experiment's), or a
+    non-affine one."""
+    r = np.linspace(2.6, 3.4, nx).astype(np.float32)
+    return r if affine else r ** 1.5
+
+
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("equation", K.JOREK_EQUATIONS)
+def test_jorek_kernels(dev, equation, affine):
+    """K2 and K1 (with its centred pass) against their plain versions,
+    the scores through K1, K1 bit-stable and K3 equal to it bit for bit, for
+    an affine and a non-affine R: the kernels read R from a table, so both
+    launch."""
+    R = _jorek_r(19, affine)
+    t = _randn((4, 3, 7, 19, 133), 52, dev)
+    p = t + 0.1 * _randn(t.shape, 53, dev)
+    cell = sk._jorek_cell(R, 3.4, 2.25e-7, equation)
+    before = K.launch_counts()
+    _close(K.jorek_residual_fused(t, R, equation=equation),
+           K.jorek_residual_plain(t, R, equation=equation), 1e-5)
+    k1 = sk._joint_cp_diff_stats(t, p, cell, centred=True)
+    _close(K.jorek_joint_cp_scores_fused(t, p, R, equation=equation),
+           K.jorek_joint_cp_scores_plain(t, p, R, equation=equation), 1e-5)
+    after = K.launch_counts()
+    assert (after["K2"] - before["K2"], after["K1"] - before["K1"]) == (1, 2)
+    for g, r in zip(k1, sk._diff_stats_plain(t, p, cell, centred=True)):
+        _close(g, r, 1e-5)
+    assert all(torch.equal(a, b)
+               for a, b in zip(k1, sk._joint_cp_diff_stats(t, p, cell, centred=True)))
+    assert all(torch.equal(a, b)
+               for a, b in zip(k1, sk._joint_cp_diff_stats_chunked(t, p, cell, centred=True)))
+
+
+def test_jorek_cell_is_refused_where_it_is_not_built(dev):
+    """The JOREK cell is compiled into K1, K2 and K3 only; K9 and the flat
+    kernels refuse it at launch."""
+    cell = sk._jorek_cell(_jorek_r(12), 3.4, 2.25e-7, "continuity")
+    t = _randn((2, 3, 5, 12, 16), 54, dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        sk._joint_cp_scores_single_pass(t, t, cell, 1e-6)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fk._flat_residual_kernel(t.reshape(2, 3, 5, -1), cell, 16, 16)
+
+
 # ---- K3 (time-chunked diff and moments) and K10-K12 (flat layout) -------------
 
 def _chunked_case(family, dev):
@@ -326,13 +374,21 @@ def _chunked_case(family, dev):
         t = _randn((4, 11, 19, 45), 40, dev)
         return t, lambda a, b, tb: K.wave_joint_cp_diff_stats_chunked(a, b, kern, t_block=tb), \
             lambda a, b: K.wave_joint_cp_diff_stats(a, b, kern), None
+    if family.startswith("jorek"):
+        eq, R = family.split("-")[1], _jorek_r(21, affine=False)
+        cell = sk._jorek_cell(R, 3.4, 2.25e-7, eq)
+        t = _randn((3, 3, 10, 21, 45), 40, dev)
+        return t, lambda a, b, tb: K.jorek_joint_cp_diff_stats_chunked(a, b, R, equation=eq,
+                                                                       t_block=tb), \
+            lambda a, b: sk._joint_cp_diff_stats(a, b, cell)[:3], cell
     eq = family.split("-")[1]
     t = _mhd((3, 6, 10, 17, 40), 40, dev)
     return t, lambda a, b, tb: K.mhd_joint_cp_diff_stats_chunked(a, b, eq, t_block=tb), \
         lambda a, b: K.mhd_joint_cp_diff_stats(a, b, eq), sk._mhd_cell(eq)
 
 
-@pytest.mark.parametrize("family", ["ns", "wave"] + [f"mhd-{e}" for e in K.MHD_EQUATIONS])
+@pytest.mark.parametrize("family", ["ns", "wave"] + [f"mhd-{e}" for e in K.MHD_EQUATIONS]
+                         + [f"jorek-{e}" for e in K.JOREK_EQUATIONS])
 def test_chunked_kernel(dev, family):
     """K3 against its plain version (1e-5 of max), against K1 bit for bit,
     the same bits at every t_block, and its centred second pass K1's."""

@@ -22,14 +22,19 @@ import torch
 from cppre.models import FNO2d as JFNO2d
 from cppre.models import fno2d_forward_fused as j_forward_fused
 from cppre.models.fno import count_params as j_count_params
+import cppre.train.losses as jlosses
+from cppre.train import loops as jloops
 from cppre.ops.pallas.fno_block import _dft_tables as j_dft_tables
 from cppre.ops.pallas.fno_block import fno_block2d_fused as j_block
 from cppre.ops.pallas.fno_block import projection2d_fused as j_projection
 from cppre.utils import fno_params_from_torch
-from cppre_torch.models import FNO2d, count_params, fno2d_forward_fused, fused_supported
+from cppre_torch.models import (FNO2d, count_params, fno2d_forward_fused, fused_supported,
+                                make_fused_train_apply)
 from cppre_torch.models.fno import get_grid
 from cppre_torch.ops import kernels as K
 from cppre_torch.ops.kernels.fno_block import _dft_tables
+from cppre_torch.train.loops import make_optimizer, make_train_step, rollout_loss
+from cppre_torch.train.losses import lp_loss
 from cppre_torch.utils import fno2d_from_jax, load_checkpoint, save_checkpoint
 
 NV, WIDTH = 3, 4
@@ -63,7 +68,8 @@ def _close(got, ref, rel):
 
 
 @pytest.mark.parametrize("spectral_impl", ["dft", "fft"])
-@pytest.mark.parametrize("modes,t_in,step", [((3, 3), 1, 1), ((2, 3), 2, 2), ((7, 3), 1, 1)])
+@pytest.mark.parametrize("modes,t_in,step", [((3, 3), 1, 1), ((2, 3), 2, 2), ((7, 3), 1, 1),
+                                              ((3, 3), 10, 10)])
 def test_forward_matches_flax_apply(spectral_impl, modes, t_in, step):
     """Both spectral paths; modes (7, 3) on 12 rows routes the dft request to
     the FFT path (2*m1 > Nx), as cppre does."""
@@ -134,6 +140,42 @@ def test_block_and_projection_plain_paths_match_pallas():
     _close(got, np.asarray(ref).reshape(got.shape), 1e-5)
 
 
+
+def test_step_10_forward_and_train_step_match_cppre():
+    """JOREK's head (T_in 10, step 10), the weights carried by
+    `fno2d_from_jax`: the fused forward (the kernels' plain versions on the
+    CPU) equals cppre's `FNO2d.apply` (1e-5 of max), and a rollout of two
+    10-frame chunks through the fused training apply gives cppre's
+    chunk-summed loss (1e-4 relative), its gradients (5e-4 of the largest,
+    as `tests/test_torch_train.py`) and, through one train step, its
+    full-trajectory loss."""
+    jm, params, tm = _pair(seed=14, t_in=10, step=10)
+    x = _x(15, b=3, t_in=10)
+    y = np.random.default_rng(16).standard_normal((3, NV, 12, 10, 20)).astype(np.float32)
+    got = fno2d_forward_fused(tm, torch.tensor(x)).numpy()
+    assert got.shape == (3, NV, 12, 10, 10)
+    _close(got, jm.apply(params, jnp.asarray(x)), 1e-5)
+
+    loss_of = lambda v: jloops.rollout_loss(jm.apply, v, jnp.asarray(x), jnp.asarray(y), 10, 20,
+                                            jlosses.lp_loss)
+    (lj, pred), gj = jax.value_and_grad(loss_of, has_aux=True)(params)
+    loss, _ = rollout_loss(make_fused_train_apply(tm), torch.tensor(x), torch.tensor(y), 10, 20,
+                           lp_loss)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(lj), rtol=1e-4)
+    ours = jax.tree_util.tree_leaves(
+        fno_params_from_torch({k: p.grad for k, p in tm.named_parameters()}, params))
+    ref = jax.tree_util.tree_leaves(jax.device_get(gj))
+    scale = max(np.abs(np.asarray(v)).max() for v in ref)
+    for a, b in zip(ours, ref):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=0, atol=5e-4 * scale)
+    step = make_train_step(make_fused_train_apply(tm), make_optimizer(tm.parameters(), 5e-3),
+                           10, 20, lp_loss)
+    loss, full = step(torch.tensor(x), torch.tensor(y))
+    np.testing.assert_allclose(float(loss), float(lj), rtol=1e-4)
+    np.testing.assert_allclose(float(full), float(jlosses.lp_loss(pred, jnp.asarray(y))),
+                               rtol=1e-4)
+
 def test_batch_shape_invariance():
     """A sample's output does not depend on the batch it is evaluated in
     (calibration/prediction exchangeability needs it)."""
@@ -151,17 +193,20 @@ def test_fused_supported_is_a_shape_rule():
     assert not fused_supported(flagship, (4, 3, 12, 100, 1))     # 2*m1 > Nx
     assert not fused_supported(flagship, (4, 3, 100, 12, 1))     # m2 > Ny//2+1
     width12 = FNO2d(1, 1, 3, 3, 3, 12, device="cpu")
-    step9 = FNO2d(1, 9, 3, 3, 3, 4, device="cpu")
+    step11 = FNO2d(1, 11, 3, 3, 3, 4, device="cpu")
     assert not fused_supported(width12, (4, 3, 12, 10, 1))
-    assert not fused_supported(step9, (4, 3, 12, 10, 1))
+    assert not fused_supported(step11, (4, 3, 12, 10, 1))
+    jorek = FNO2d(10, 10, 8, 8, 3, 16, device="cpu")            # JOREK's head: step 10
+    assert fused_supported(jorek, (5, 3, 32, 32, 10), backward=True)
     assert not fused_supported(flagship, (1, 3, 512, 512, 1))    # plane > shared memory
 
 
 def test_kernel_limits_name_what_they_break():
     assert K.fno_kernel_limits(16, 1, 100, 100, 8, 8, backward=True) == []
-    broken = K.fno_kernel_limits(12, 9, 512, 512, 300, 300)
+    assert K.fno_kernel_limits(16, 10, 32, 32, 8, 8, backward=True) == []
+    broken = K.fno_kernel_limits(12, 11, 512, 512, 300, 300)
     assert len(broken) == 5
-    for part, words in zip(broken, ("width 12", "step 9", "modes (300, 300)", "512x512 plane",
+    for part, words in zip(broken, ("width 12", "step 11", "modes (300, 300)", "512x512 plane",
                                     "K4's row stage")):
         assert words in part, (words, part)
     # K6's per-row stage outgrows shared memory before K4's plane does: at
