@@ -30,7 +30,9 @@ JOREK [12,3,21,512,512], MHD induction [25,6,21,256,256], wave
 timed. Phases, one line each:
 
   build      compile the kernels from `cppre_torch/csrc` (nvcc, in parallel);
-             then one `ptxas` line per kernel function: registers and spills
+             then one `ptxas` line per kernel function: registers and spills;
+             a spill in any instance of the FNO block's stages (K4, K6:
+             `FNO_BLOCK_STAGES`) fails the run
   device     the card, and its name and power limit from nvidia-smi
   kernels    every kernel against its plain version at the main paths'
              shapes (K1, K2, K4, K5 at the NS serving shapes, K6, K7 at the
@@ -265,7 +267,7 @@ def same_bits(name, a, b):
 
 def _kernel_name(mangled):
     """A mangled kernel name as name<template args>, its namespaces dropped:
-    _ZN<ns>20block_bwd_row_kernelILi16EEEv... -> block_bwd_row_kernel<16>;
+    _ZN<ns>21block_bwd_tile_kernelILi16EEEv... -> block_bwd_tile_kernel<16>;
     a class argument keeps its name: residual_kernelIN<ns>3MhdILi4EEEE ->
     residual_kernel<Mhd<4>>."""
     def name_at(s):
@@ -308,6 +310,14 @@ def _kernel_name(mangled):
     if rest.startswith("I"):
         name += args_at(rest)[0]
     return name
+
+
+# The kernel functions of K4 and K6 (csrc/fno_block.cu, fno_block_bwd.cu and
+# their headers): built to keep every width's working set in registers, so a
+# spill in any of them is a fault of the build.
+FNO_BLOCK_STAGES = ("dft_fwd_kernel", "spectral_mix_kernel", "inverse_x_kernel",
+                    "block_out_tile_kernel", "block_bwd_tile_kernel", "idft_dx_tile_kernel",
+                    "spectral_adjoint_kernel", "reduce_rows_kernel")
 
 
 def ptxas_summary(report):
@@ -1344,9 +1354,15 @@ def main():
 
     secs = _build.build()
     say("build", sources=len(_build.SOURCES), seconds=f"{secs:.1f}", dir=_build.BUILD_DIR)
+    spilled = []
     for name in _build.SOURCES:
         for fn, info in ptxas_summary(_build.ptxas_report(name)).items():
             say("ptxas", lib=name, kernel=fn, **info)
+            if (name.startswith("fno_block") and re.split(r"<", fn)[0] in FNO_BLOCK_STAGES
+                    and (info.get("spill_stores") or info.get("spill_loads"))):
+                spilled.append(fn)
+    if spilled:
+        raise AssertionError(f"ptxas spills registers in the FNO block's stages: {spilled}")
 
     device = torch.device("cuda", 0)
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()

@@ -37,3 +37,29 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(bytes));
 }
+
+// ---- cp.async, 4 bytes at a time (rows need not be 16-byte aligned) -------
+// A copy with valid == false writes 0 and reads nothing.
+__device__ __forceinline__ void copy_async4(float* dst, const float* src, bool valid) {
+#if defined(__CUDA_ARCH__)
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(valid ? 4 : 0));
+#else
+    *dst = valid ? *src : 0.0f;
+#endif
+}
+
+__device__ __forceinline__ void copy_async_commit() {
+#if defined(__CUDA_ARCH__)
+    asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void copy_async_wait() {
+#if defined(__CUDA_ARCH__)
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+#endif
+}

@@ -102,11 +102,18 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+_DECLARED: dict = {}
+
+
 def declare(lib: ctypes.CDLL, fn: str, argtypes, restype=ctypes.c_int):
-    """Set and return `lib.fn` with its ctypes signature."""
-    f = getattr(lib, fn)
-    f.argtypes = list(argtypes)
-    f.restype = restype
+    """`lib.fn` with its ctypes signature, set on the first call (a function
+    has one signature; later calls reuse it)."""
+    f = _DECLARED.get((id(lib), fn))
+    if f is None:
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = restype
+        _DECLARED[(id(lib), fn)] = f
     return f
 
 

@@ -62,16 +62,51 @@ KERNEL_MAX_STEP = 10
 _SMEM_LIMIT = 227 * 1024
 
 
-def _row_smem(width: int, ny: int, m2: int, backward: bool) -> int:
-    """Shared memory (bytes) of the per-row stage of K4 (csrc/fno_block.cu,
-    launch_block_out) or, with `backward`, of K6, the largest of its row
-    stages (csrc/fno_block_bwd.cu, launch_bwd_row)."""
-    fwd = 2 * width * m2 + 3 * width * width + 3 * width + 2 * m2 * ny
-    if not backward:
-        return 4 * fwd
-    threads = ((ny + 31) // 32) * 32 if ny < 128 else 128
-    n_part = 3 * width * width + 2 * width
-    return 4 * (fwd + n_part + 5 * width * (threads + 1))
+# The shapes of the pixel-tile stages (csrc/fno_tile.cuh) and of the
+# forward-DFT stage (csrc/fno_dft.cuh), for the shared-memory limits.
+_TILE_P, _TILE_LD, _TILE_ROWS = 128, 132, 4
+_DFT_ROWS, _DFT_MAX_PLANES, _DFT_PLANE_FLOATS, _DFT_THREADS = 128, 8, 16384, 128
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _dft_smem(nx: int, ny: int, m2: int, k_fr: int) -> int:
+    """Shared memory (bytes) of the forward-DFT stage (csrc/fno_dft.cuh,
+    dft_geom and dft_floats) at its most planes a block, G (up to 128 rows,
+    8 planes and 16384 floats, at least one plane; small batches take
+    fewer), transposed
+    [Ny, rows + 4] (or, if larger, the partial sums of the x product's S
+    row slices, which take their room), the x tables [Nx, 2*Kp] and the y
+    products [rows, 2*m2p]."""
+    g = max(1, min(_DFT_MAX_PLANES, _DFT_ROWS // nx, _DFT_PLANE_FLOATS // (nx * ny)))
+    rows = _round4(g * nx)
+    per_plane = (_round4(m2) // 4) * (_round4(k_fr) // 4)
+    s = max(1, min(8, _DFT_THREADS // per_plane))
+    part = s * g * per_plane * 32 if s > 1 else 0
+    return 4 * (max(ny * (rows + 4), part) + nx * 2 * _round4(k_fr) + rows * 2 * _round4(m2))
+
+
+def _tile_geom(nx: int, ny: int) -> tuple[int, int]:
+    """(ty, rt) of the pixel tiles of K4's and K6's stages
+    (csrc/fno_tile.cuh, tile_geom): a tile is rt rows of ty y positions."""
+    nseg = -(-ny // _TILE_P)
+    ty = _round4(-(-ny // nseg))
+    return ty, min(_TILE_P // ty, _TILE_ROWS, nx)
+
+
+def _tile_smem(width: int, nx: int, ny: int, m2: int, backward: bool) -> int:
+    """Shared memory (bytes) of K4's output stage (csrc/fno_block.cu,
+    launch_block_out) or, with `backward`, of K6's largest stage, its
+    stage 2 (csrc/fno_block_bwd.cu, launch_bwd_tiles): [W, 132]-float
+    pixel tiles (4 for K4, 8 for K6), the W x W maps (3, 5) and biases, two
+    buffers of the tile rows' inverse-x values [rt, 2*m2, W] and the y
+    tables' slice [2*m2, ty]."""
+    ty, rt = _tile_geom(nx, ny)
+    spec = 2 * rt * 2 * m2 * width + 2 * m2 * ty
+    tiles, maps = (8, 5) if backward else (4, 3)
+    return 4 * (tiles * width * _TILE_LD + maps * width * width + 3 * width + spec)
 
 
 def fno_kernel_limits(width: int, step: int, nx: int, ny: int, m1: int, m2: int,
@@ -79,8 +114,9 @@ def fno_kernel_limits(width: int, step: int, nx: int, ny: int, m1: int, m2: int,
     """The limits of kernels K4 and K5 (with `backward`, also K6 and K7)
     that this configuration breaks, in words; empty when they take it. The
     limits: a compiled width, 1 <= step <= 10, the modes within the one-sided
-    spectrum (2*m1 <= Nx, m2 <= Ny//2+1), and the forward-DFT stage's plane
-    and the per-row stage (K4's or K6's) within one block's shared memory."""
+    spectrum (2*m1 <= Nx, m2 <= Ny//2+1), and the forward-DFT stage's planes,
+    the inverse-x stage's tables and the pixel-tile stage (K4's or K6's)
+    each within one block's shared memory."""
     broken = []
     if width not in KERNEL_WIDTHS:
         broken.append(f"width {width} is not one of the compiled widths {KERNEL_WIDTHS}")
@@ -88,14 +124,18 @@ def fno_kernel_limits(width: int, step: int, nx: int, ny: int, m1: int, m2: int,
         broken.append(f"step {step} is outside 1..{KERNEL_MAX_STEP}")
     if not (2 * m1 <= nx and m2 <= ny // 2 + 1):
         broken.append(f"modes ({m1}, {m2}) exceed the {nx}x{ny} grid's one-sided spectrum")
-    plane = 4 * (nx * ny + 2 * nx * m2)
+    plane = _dft_smem(nx, ny, m2, 2 * m1)
     if plane > _SMEM_LIMIT:
         broken.append(f"the forward-DFT stage needs {plane} B of shared memory for a {nx}x{ny} "
                       f"plane, above {_SMEM_LIMIT} B")
-    row = _row_smem(width, ny, m2, backward)
+    inv_x = 4 * 2 * (2 * m1) * (_round4(nx) + _TILE_LD)
+    if inv_x > _SMEM_LIMIT:
+        broken.append(f"the inverse-x stage needs {inv_x} B of shared memory for Nx {nx} and "
+                      f"{2 * m1} x-modes, above {_SMEM_LIMIT} B")
+    row = _tile_smem(width, nx, ny, m2, backward)
     if row > _SMEM_LIMIT:
-        broken.append(f"{'K6' if backward else 'K4'}'s row stage needs {row} B of shared "
-                      f"memory at width {width}, Ny {ny}, above {_SMEM_LIMIT} B")
+        broken.append(f"{'K6' if backward else 'K4'}'s tile stage needs {row} B of shared "
+                      f"memory at width {width}, Ny {ny}, m2 {m2}, above {_SMEM_LIMIT} B")
     return broken
 
 
@@ -122,13 +162,27 @@ def _dft_tables(nx: int, ny: int, m1: int, m2: int, device=None):
 
 @functools.lru_cache(maxsize=16)
 def _adjoint_tables(nx: int, ny: int, m1: int, m2: int, device=None):
-    """The tables of the backward (K6): the transposed weighted inverse-y
-    tables (iyc^T, iys^T) [Ny, m2], the adjoint of the inverse y transform,
-    and the transposed forward-y tables (cy^T, sy^T) [m2, Ny], the adjoint
-    of the forward one (`_dft_tables` copies, as the Pallas kernel takes
-    them)."""
+    """The transposed forward-y tables (cy^T, sy^T) [m2, Ny]: the adjoint
+    of the forward y transform, which K6's last stage applies."""
+    cy, sy = _dft_tables(nx, ny, m1, m2, device)[:2]
+    return cy.T.contiguous(), sy.T.contiguous()
+
+
+@functools.lru_cache(maxsize=16)
+def _dft_y_packed(nx: int, ny: int, m1: int, m2: int, device=None):
+    """The y tables of the forward-DFT stage (csrc/fno_dft.cuh,
+    dft_fwd_kernel), each packed [Ny, 2*m2p] with m2p = m2 rounded up to 4
+    and zero columns between: [cy | sy] for the forward transform and
+    [iyc^T | iys^T] for K6's adjoint of the inverse one."""
     cy, sy, _, _, _, _, iyc, iys = _dft_tables(nx, ny, m1, m2, device)
-    return tuple(t.T.contiguous() for t in (iyc, iys, cy, sy))
+    m2p = _round4(m2)
+
+    def pack(c, s):
+        out = torch.zeros((ny, 2 * m2p), dtype=torch.float32, device=device)
+        out[:, :m2], out[:, m2p:m2p + m2] = c, s
+        return out
+
+    return pack(cy, sy), pack(iyc.T, iys.T)
 
 
 def _repack_spectral(conv, m1: int, m2: int):
@@ -218,10 +272,15 @@ def fno_block2d_fused(x, block, x3, m1: int, m2: int):
         _build.require(v, f"block weight {k}", device=dev)
     if t["a1"].shape != (w_ch, w_ch) or t["wr"].shape != (w_ch, w_ch, nv, m2, 2 * m1):
         raise ValueError("block weights do not match the input's width, variables or modes")
-    tables = _dft_tables(nx, ny, m1, m2, dev)
+    _, _, cx, sx, cxT, sxT, iyc, iys = _dft_tables(nx, ny, m1, m2, dev)
+    tables = (_dft_y_packed(nx, ny, m1, m2, dev)[0], cx, sx, cxT, sxT, iyc, iys)
     k_fr = 2 * m1
-    scratch = [torch.empty((b, nv, w_ch, m2, k_fr), device=dev, dtype=torch.float32)
-               for _ in range(4)]
+    # one allocation: vx [B, V, Nx, 2*m2, W] first (the kernel reads it as
+    # float4), then z and m, re and im, [B, V, W, m2, K] each
+    n_vx, n_spec = b * nv * nx * 2 * m2 * w_ch, b * nv * w_ch * m2 * k_fr
+    buf = torch.empty(n_vx + 4 * n_spec, device=dev, dtype=torch.float32)
+    vx, spec = buf[:n_vx], buf[n_vx:]
+    scratch = [spec[i * n_spec:(i + 1) * n_spec] for i in range(4)] + [vx]
     out = torch.empty_like(x)
     lib = _build.library("fno_block")
     fn = _build.declare(lib, "cppre_fno_block2d_fwd", [_P] * 23 + [_I] * 7 + [_F, _P])
@@ -253,6 +312,15 @@ def fno_block2d_bwd_plain(x, g, block, x3, m1: int, m2: int):
     with torch.enable_grad():
         out = _block_math(xs, x3s, t, m1, m2)
         return torch.autograd.grad(out, [xs, *(t[k] for k in _GRAD_ORDER), x3s], g)
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_blocks(b: int, w_ch: int, nv: int, nx: int, ny: int) -> int:
+    """Rows of K6's partial-sum scratch at this shape: its stage 2's fixed
+    grid (csrc/fno_block_bwd.cu, cppre_fno_block2d_bwd_blocks)."""
+    lib = _build.library("fno_block_bwd")
+    return _build.declare(lib, "cppre_fno_block2d_bwd_blocks", [_I] * 5, _LL)(
+        b, w_ch, nv, nx, ny)
 
 
 def fno_block2d_bwd_fused(x, g, block, x3, m1: int, m2: int):
@@ -288,18 +356,29 @@ def fno_block2d_bwd_fused(x, g, block, x3, m1: int, m2: int):
     k_fr = 2 * m1
     n_part = 3 * w_ch * w_ch + 2 * w_ch
     f32 = dict(device=dev, dtype=torch.float32)
-    work = torch.empty(8 * b * nv * w_ch * m2 * k_fr, **f32)
-    gs, dspec, dx = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
-    partial = torch.empty((b * nv * nx, n_part), **f32)
+    lib = _build.library("fno_block_bwd")
+    n_blocks = _bwd_blocks(b, w_ch, nv, nx, ny)
+    # one scratch allocation: vx [B, V, Nx, 2*m2, W] first (the kernels read
+    # it as float4), the 8 spectral planes, gs, dspec and the partial rows
+    n_vx, n_work = b * nv * nx * 2 * m2 * w_ch, 8 * b * nv * w_ch * m2 * k_fr
+    n_x = x.numel()
+    buf = torch.empty(n_vx + n_work + 2 * n_x + n_blocks * n_part, **f32)
+    vx, work = buf[:n_vx], buf[n_vx:n_vx + n_work]
+    gs = buf[n_vx + n_work:n_vx + n_work + n_x]
+    dspec = buf[n_vx + n_work + n_x:n_vx + n_work + 2 * n_x]
+    partial = buf[n_vx + n_work + 2 * n_x:]
+    dx = torch.empty_like(x)
     dwr = torch.empty((w_ch, w_ch, nv, m2, k_fr), **f32)
     dwi = torch.empty_like(dwr)
     red = torch.empty(n_part, **f32)
     dx3 = torch.empty((1, w_ch, nv, nx, ny), **f32)
-    lib = _build.library("fno_block_bwd")
-    fn = _build.declare(lib, "cppre_fno_block2d_bwd", [_P] * 32 + [_I] * 7 + [_F, _P])
+    _, _, cx, sx, cxT, sxT, iyc, iys = _dft_tables(nx, ny, m1, m2, dev)
+    ty, ty_adj = _dft_y_packed(nx, ny, m1, m2, dev)
+    cyT, syT = _adjoint_tables(nx, ny, m1, m2, dev)
+    fn = _build.declare(lib, "cppre_fno_block2d_bwd", [_P] * 31 + [_I] * 7 + [_F, _P])
     ptrs = [x, g, x3, t["wr"], t["wi"], t["a1"], t["b1"], t["a2"], t["b2"], t["aw"], t["bw"],
-            *_dft_tables(nx, ny, m1, m2, dev), *_adjoint_tables(nx, ny, m1, m2, dev),
-            work, gs, dspec, partial, dx, dwr, dwi, red, dx3]
+            ty, cx, sx, cxT, sxT, iyc, iys, ty_adj, cyT, syT,
+            work, vx, gs, dspec, partial, dx, dwr, dwi, red, dx3]
     with torch.cuda.device(dev):
         rc = fn(*(p.data_ptr() for p in ptrs), b, w_ch, nv, nx, ny, m2, k_fr,
                 1.0 / (nx * ny), _build.stream_of(x))

@@ -20,6 +20,8 @@ K10, bit for bit: each pair calls one cell in one batch order. The JOREK
 cell runs in K1, K2 and K3 for affine and non-affine major-radius grids.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -127,17 +129,17 @@ def test_kernels_refuse_what_they_do_not_take(dev):
 
 def test_fused_applies_refuse_shapes_the_kernels_do_not_take(dev):
     """On the card there is no plain fallback: the width-12 model raises,
-    and so does training where only K6's row stage is too large."""
+    and so does training where only K6's tile stage is too large."""
     from cppre_torch.models import make_fused_apply
 
     narrow = FNO2d(1, 1, 2, 2, 1, 12, device=dev)
     with pytest.raises(ValueError, match="width 12"):
         make_fused_apply(narrow)(_randn((1, 1, 8, 8, 1), 16, dev))
-    wide = FNO2d(1, 1, 8, 8, 1, 32, device=dev)
-    x = _randn((1, 1, 16, 2000, 1), 17, dev)
-    with pytest.raises(ValueError, match="K6's row stage"):
+    wide = FNO2d(1, 1, 8, 60, 1, 32, device=dev)
+    x = _randn((1, 1, 16, 128, 1), 17, dev)
+    with pytest.raises(ValueError, match="K6's tile stage"):
         make_fused_train_apply(wide)(x)
-    assert make_fused_apply(wide)(x).shape == (1, 1, 16, 2000, 1)
+    assert make_fused_apply(wide)(x).shape == (1, 1, 16, 128, 1)
 
 
 def test_fno2d_defaults_to_the_card(dev):
@@ -166,6 +168,62 @@ def test_fno_block_bwd_kernel(dev, width, nx, ny, m1, m2):
     _grads_close(got, K.fno_block2d_bwd_plain(x, g, model.f3, x3, m1, m2), "K6")
     # bit-stable: every cross-block sum has one fixed order
     again = K.fno_block2d_bwd_fused(x, g, model.f3, x3, m1, m2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("width", [4, 8, 16, 32])
+@pytest.mark.parametrize("ny", [7, 33, 100, 150])
+def test_fno_block_kernels_at_ragged_tiles(dev, width, ny):
+    """K4 and K6 where the pixel tiles are ragged: several 7-wide rows
+    stacked in one tile, 33 (a tile of 3 rows of 36), 100 (one row of a
+    128-pixel tile) and 150 (two segments of 76); an odd number of rows,
+    six variables. K6 twice gives equal bits."""
+    nx, m1, m2 = 9, 3, min(5, ny // 2 + 1)
+    model = FNO2d(1, 1, m1, m2, 6, width, device=dev,
+                  generator=torch.Generator().manual_seed(ny + width))
+    x = _randn((1, width, 6, nx, ny), 60, dev)
+    g = _randn(x.shape, 61, dev)
+    x3 = _randn((1, width, 6, nx, ny), 62, dev)
+    with torch.no_grad():
+        _close(K.fno_block2d_fused(x, model.f4, x3, m1, m2),
+               K.fno_block2d_plain(x, model.f4, x3, m1, m2), 1e-4)
+    got = K.fno_block2d_bwd_fused(x, g, model.f4, x3, m1, m2)
+    _grads_close(got, K.fno_block2d_bwd_plain(x, g, model.f4, x3, m1, m2), "K6")
+    again = K.fno_block2d_bwd_fused(x, g, model.f4, x3, m1, m2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_fno_block_kernel_is_batch_invariant(dev):
+    """A sample's K4 output is the same bits alone and inside a batch of 7
+    (the CP exchangeability the invariance phase of chip_smoke.py holds)."""
+    model = FNO2d(1, 1, 8, 8, 3, 16, device=dev, generator=torch.Generator().manual_seed(63))
+    x = _randn((7, 16, 3, 37, 100), 64, dev)
+    x3 = _randn((1, 16, 3, 37, 100), 65, dev)
+    with torch.no_grad():
+        full = K.fno_block2d_fused(x, model.f2, x3, 8, 8)
+        for i in (0, 3, 6):
+            assert torch.equal(K.fno_block2d_fused(x[i:i + 1].contiguous(), model.f2, x3, 8, 8),
+                               full[i:i + 1])
+
+
+def test_fno_block_bwd_blocks_walk_several_tiles(dev):
+    """K6's stage 2 runs a fixed grid: here fewer blocks than tiles, so a
+    block adds several tiles into its registers in order; the result holds
+    against the plain version and repeats bit for bit."""
+    from cppre_torch.ops.kernels import _build
+
+    b, width, v, nx, ny = 3, 16, 2, 65, 128
+    lib = _build.library("fno_block_bwd")
+    n_blocks = _build.declare(lib, "cppre_fno_block2d_bwd_blocks", [ctypes.c_int] * 5,
+                              ctypes.c_longlong)(b, width, v, nx, ny)
+    assert n_blocks < b * v * nx                       # one 128-pixel tile per row
+    model = FNO2d(1, 1, 6, 8, v, width, device=dev, generator=torch.Generator().manual_seed(66))
+    x = _randn((b, width, v, nx, ny), 67, dev)
+    g = _randn(x.shape, 68, dev)
+    x3 = _randn((1, width, v, nx, ny), 69, dev)
+    got = K.fno_block2d_bwd_fused(x, g, model.f1, x3, 6, 8)
+    _grads_close(got, K.fno_block2d_bwd_plain(x, g, model.f1, x3, 6, 8), "K6")
+    again = K.fno_block2d_bwd_fused(x, g, model.f1, x3, 6, 8)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

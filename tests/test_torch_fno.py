@@ -205,17 +205,17 @@ def test_kernel_limits_name_what_they_break():
     assert K.fno_kernel_limits(16, 1, 100, 100, 8, 8, backward=True) == []
     assert K.fno_kernel_limits(16, 10, 32, 32, 8, 8, backward=True) == []
     broken = K.fno_kernel_limits(12, 11, 512, 512, 300, 300)
-    assert len(broken) == 5
+    assert len(broken) == 6
     for part, words in zip(broken, ("width 12", "step 11", "modes (300, 300)", "512x512 plane",
-                                    "K4's row stage")):
+                                    "inverse-x stage", "K4's tile stage")):
         assert words in part, (words, part)
-    # K6's per-row stage outgrows shared memory before K4's plane does: at
-    # width 32 on a 16x2000 grid the forward kernels take the model and the
-    # backward ones do not
-    wide = FNO2d(1, 1, 8, 8, 3, 32, device="cpu")
-    assert fused_supported(wide, (2, 3, 16, 2000, 1))
-    assert not fused_supported(wide, (2, 3, 16, 2000, 1), backward=True)
-    assert "K6's row stage" in K.fno_kernel_limits(32, 1, 16, 2000, 8, 8, backward=True)[0]
+    # K6's tile stage outgrows shared memory before K4's does: at width 32
+    # with 60 y-modes on a 16x128 grid the forward kernels take the model
+    # and the backward ones do not
+    wide = FNO2d(1, 1, 8, 60, 3, 32, device="cpu")
+    assert fused_supported(wide, (2, 3, 16, 128, 1))
+    assert not fused_supported(wide, (2, 3, 16, 128, 1), backward=True)
+    assert "K6's tile stage" in K.fno_kernel_limits(32, 1, 16, 128, 8, 60, backward=True)[0]
 
 
 def test_generator_init_and_checkpoint_round_trip(tmp_path):
