@@ -31,7 +31,7 @@ timed. Phases, one line each:
 
   build      compile the kernels from `cppre_torch/csrc` (nvcc, in parallel);
              then one `ptxas` line per kernel function: registers and spills;
-             a spill in any instance of the FNO block's stages (K4, K6:
+             a spill in any instance of the FNO kernels' stages (K4-K7:
              `FNO_BLOCK_STAGES`) fails the run
   device     the card, and its name and power limit from nvidia-smi
   kernels    every kernel against its plain version at the main paths'
@@ -312,12 +312,13 @@ def _kernel_name(mangled):
     return name
 
 
-# The kernel functions of K4 and K6 (csrc/fno_block.cu, fno_block_bwd.cu and
-# their headers): built to keep every width's working set in registers, so a
-# spill in any of them is a fault of the build.
+# The kernel functions of K4-K7 (csrc/fno_block.cu, fno_block_bwd.cu and
+# their headers): built to keep every width's and step's working set in
+# registers, so a spill in any of them is a fault of the build.
 FNO_BLOCK_STAGES = ("dft_fwd_kernel", "spectral_mix_kernel", "inverse_x_kernel",
                     "block_out_tile_kernel", "block_bwd_tile_kernel", "idft_dx_tile_kernel",
-                    "spectral_adjoint_kernel", "reduce_rows_kernel")
+                    "spectral_adjoint_kernel", "reduce_rows_kernel", "projection_tile_kernel",
+                    "projection_bwd_tile_kernel")
 
 
 def ptxas_summary(report):
@@ -1362,7 +1363,7 @@ def main():
                     and (info.get("spill_stores") or info.get("spill_loads"))):
                 spilled.append(fn)
     if spilled:
-        raise AssertionError(f"ptxas spills registers in the FNO block's stages: {spilled}")
+        raise AssertionError(f"ptxas spills registers in the FNO kernels' stages: {spilled}")
 
     device = torch.device("cuda", 0)
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()

@@ -34,11 +34,21 @@
 // float64 and stored in float32, as the JAX package's _dft_tables builds
 // them.
 //
-// K5. One thread per pixel: the W inputs sit in registers, fc1 [256, W] and
-// fc2 [step, 256] in shared memory (~17 KB), and the 256-wide hidden vector
-// is consumed one unit at a time, so the [B, V, Nx, Ny, 256] activation that
-// the plain version materialises (~3 GB at the NS flagship) never exists.
-// Bounded by the 256 erf evaluations and ~4.4k flops per pixel.
+// K5. Per pixel, fc1 [256, W], exact gelu and fc2 [step, 256]: 256 (W +
+// step) multiply-adds and 256 gelu evaluations against 4 (W + step) bytes
+// read and written, so it is bounded by the FP32 pipe, and gelu is as
+// large a part of it as fc1 at width 16 (about 25 instructions a gelu in
+// the built kernel, rational or erff alike). So the weights must not be reloaded per FMA, nor z
+// read at a stride, nor W-long dependent chains run: a fixed grid (one
+// wave) walks tiles of 32 pixels in order (fno_tile.cuh's
+// projection tiles): the next tile's z comes with cp.async while the
+// current one computes; fc1 is a register-tiled product (4 hidden x 4
+// pixel micro-tiles, one float4 shared load per 8 FMAs, a wavefront each),
+// gelu is the TPU kernel's branch-free rational erf on registers
+// (proj_gelu, common.cuh), fc2 takes four outputs at a time into 4 x 4
+// accumulators, and the [32, step] output is written once, coalesced. The [.., 256] hidden
+// activation that the plain version materialises (~3 GB at the NS
+// flagship) never exists.
 //
 // Every pixel's result depends only on its own sample, in a fixed order of
 // operations (the tile and plane-group geometry depend on the grid alone),
@@ -175,48 +185,106 @@ __global__ void __launch_bounds__(8 * W, 1)
 }
 
 // ---- K5: projection head -----------------------------------------------------
-// z [npix, W]; a1 [wp, W]; b1 [wp]; a2 [step, wp]; b2 [step]; out [npix, step].
+// z [npix, W]; a1 [256, W]; b1 [256]; a2 [step, 256]; b2 [step]; out [npix, step].
+// One tile of kProjP pixels at a time (fno_tile.cuh): each thread forms its
+// two 4 x 4 micro-tiles of pre = a1 z^T, adds b1 and applies gelu on
+// registers, then adds its 8 hidden units times their fc2 columns into
+// [4 outputs, 4 pixels] accumulators, four outputs at a time; the 32
+// hidden slices of a pixel are summed by two shuffles inside the warp and
+// then over the 8 warps in order, through shared memory, and the tile's
+// [kProjP, step] output (contiguous) is written once. S is step padded to
+// 1, 4 or 12 (the instances), with zero fc2 columns past step.
 constexpr int kMaxStep = 10;   // every FNO2d configuration of the JAX package (JOREK: 10)
 
-template <int W>
-__global__ void projection_kernel(const float* __restrict__ z, const float* __restrict__ a1,
-                                  const float* __restrict__ b1, const float* __restrict__ a2,
-                                  const float* __restrict__ b2, float* __restrict__ out,
-                                  long long npix, int wp, int step) {
-    extern __shared__ float smem[];
-    float* s_a1 = smem;              // [wp, W]
-    float* s_b1 = s_a1 + wp * W;     // [wp]
-    float* s_a2 = s_b1 + wp;         // [step, wp]
-    float* s_b2 = s_a2 + step * wp;  // [step]
-    for (int i = threadIdx.x; i < wp * W; i += blockDim.x) s_a1[i] = a1[i];
-    for (int i = threadIdx.x; i < wp; i += blockDim.x) s_b1[i] = b1[i];
-    for (int i = threadIdx.x; i < step * wp; i += blockDim.x) s_a2[i] = a2[i];
-    for (int i = threadIdx.x; i < step; i += blockDim.x) s_b2[i] = b2[i];
-    __syncthreads();
+template <int W, int S>
+__host__ __device__ constexpr int proj_fwd_floats() {
+    return W * kProjLdA + kProjHidden * S + kProjHidden + 2 * kProjP * proj_ldz(W) +
+           (kProjThreads / 32) * S * kProjP;
+}
 
-    for (long long pix = (long long)blockIdx.x * blockDim.x + threadIdx.x; pix < npix;
-         pix += (long long)gridDim.x * blockDim.x) {
-        float zin[W];
-        const float* zp = z + pix * W;
+template <int W, int S>
+__global__ void __launch_bounds__(kProjThreads, 2)
+    projection_tile_kernel(const float* __restrict__ z, const float* __restrict__ a1,
+                           const float* __restrict__ b1, const float* __restrict__ a2,
+                           const float* __restrict__ b2, float* __restrict__ out,
+                           long long npix, int step, long long n_tiles) {
+    constexpr int ZT = kProjP * proj_ldz(W), NW = kProjThreads / 32;
+    extern __shared__ float4 smem4[];
+    float* sA1T = reinterpret_cast<float*>(smem4);   // [W, kProjLdA]
+    float* sA2T = sA1T + W * kProjLdA;                // [256, S]
+    float* sB1 = sA2T + kProjHidden * S;               // [256]
+    float* sZ = sB1 + kProjHidden;                     // [2][kProjP, ldz]
+    float* sP = sZ + 2 * ZT;                           // [NW, S, kProjP]
+    proj_stage_weights<W, S>(a1, b1, a2, step, sA1T, sB1, sA2T);
+
+    const int pg = threadIdx.x & 7, hs = threadIdx.x >> 3;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    long long t0, t1;
+    tile_range(n_tiles, &t0, &t1);
+    if (t0 < t1) proj_load_z_async<W>(z, t0 * kProjP, npix, sZ);
+    copy_async_commit();
+    for (long long ti = t0; ti < t1; ++ti) {
+        const int buf = (int)((ti - t0) & 1);
+        if (ti + 1 < t1) proj_load_z_async<W>(z, (ti + 1) * kProjP, npix, sZ + (buf ^ 1) * ZT);
+        copy_async_commit();
+        copy_async_wait<1>();
+        __syncthreads();
+
+        const float* zp = sZ + buf * ZT + pg * proj_ldz(W);
+        float h[2][4][4];                           // gelu(pre) of the thread's 8 hidden units
 #pragma unroll
-        for (int i = 0; i < W; ++i) zin[i] = __ldg(zp + i);
-        float acc[kMaxStep];
+        for (int ch = 0; ch < 2; ++ch) {
+            const int c0 = 8 * hs + 4 * ch;
+            proj_fc1<W>(h[ch], sA1T, c0, zp);
 #pragma unroll
-        for (int s = 0; s < kMaxStep; ++s) acc[s] = 0.0f;
-        for (int j = 0; j < wp; ++j) {
-            float pre = s_b1[j];
+            for (int a = 0; a < 4; ++a) {
+                const float b = sB1[c0 + a];
 #pragma unroll
-            for (int i = 0; i < W; ++i) pre += s_a1[j * W + i] * zin[i];
-            const float h = gelu_exact(pre);
-#pragma unroll
-            for (int s = 0; s < kMaxStep; ++s)
-                if (s < step) acc[s] += h * s_a2[s * wp + j];
+                for (int j = 0; j < 4; ++j) h[ch][a][j] = proj_gelu(h[ch][a][j] + b);
+            }
         }
-        float* op = out + pix * step;
+        // fc2, four outputs at a time: the 8 hidden units in order, then the
+        // warp's 4 hidden slices of a pixel (lanes l, l^8, l^16, l^24)
+        constexpr int SG = S < 4 ? S : 4;
 #pragma unroll
-        for (int s = 0; s < kMaxStep; ++s)
-            if (s < step) op[s] = acc[s] + s_b2[s];
-    }
+        for (int s0 = 0; s0 < S; s0 += SG) {
+            float acc[SG][4];
+#pragma unroll
+            for (int s = 0; s < SG; ++s) acc[s][0] = acc[s][1] = acc[s][2] = acc[s][3] = 0.0f;
+#pragma unroll
+            for (int u = 0; u < 8; ++u) {
+                const float* w = sA2T + (8 * hs + u) * S + s0;
+#pragma unroll
+                for (int s = 0; s < SG; ++s) {
+                    const float ws = w[s];
+#pragma unroll
+                    for (int j = 0; j < 4; ++j)
+                        acc[s][j] = fmaf(ws, h[u >> 2][u & 3][j], acc[s][j]);
+                }
+            }
+#pragma unroll
+            for (int s = 0; s < SG; ++s)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    float v = acc[s][j];
+                    v += __shfl_xor_sync(0xffffffffu, v, 8);
+                    v += __shfl_xor_sync(0xffffffffu, v, 16);
+                    if (lane < 8) sP[(warp * S + s0 + s) * kProjP + pg + 8 * j] = v;
+                }
+        }
+        __syncthreads();
+        const long long pb = ti * kProjP;
+        for (int k = threadIdx.x; k < kProjP * step; k += kProjThreads) {
+            const int p = k / step, s = k - p * step;
+            if (pb + p < npix) {
+                float v = sP[s * kProjP + p];
+#pragma unroll
+                for (int w = 1; w < NW; ++w) v += sP[(w * S + s) * kProjP + p];
+                out[pb * step + k] = v + b2[s];
+            }
+        }
+    }   // the next tile's first __syncthreads frees sP
+    copy_async_wait<0>();
 }
 
 // Blocks of K4's output stage: a function of the shape alone (at most two
@@ -243,26 +311,17 @@ cudaError_t launch_block_out(const float* x, const float* x3, const float* vx, c
     return cudaGetLastError();
 }
 
-template <int W>
+template <int W, int S>
 cudaError_t launch_projection(const float* z, const float* a1, const float* b1, const float* a2,
-                              const float* b2, float* out, long long npix, int wp, int step,
-                              int n_sm, cudaStream_t s) {
-    const size_t smem = sizeof(float) * (wp * W + wp + step * wp + step);
-    cudaError_t err = allow_smem(projection_kernel<W>, smem);
+                              const float* b2, float* out, long long npix, int step,
+                              cudaStream_t s) {
+    const size_t smem = sizeof(float) * proj_fwd_floats<W, S>();
+    cudaError_t err = allow_smem(projection_tile_kernel<W, S>, smem);
     if (err != cudaSuccess) return err;
-    long long blocks = (npix + kThreads - 1) / kThreads;
-    const long long cap = 4LL * n_sm;   // grid-stride: load the weights fewer times
-    if (blocks > cap) blocks = cap;
-    projection_kernel<W><<<(unsigned)blocks, kThreads, smem, s>>>(z, a1, b1, a2, b2, out, npix,
-                                                                 wp, step);
+    // No sum crosses blocks, so the grid changes no bit of the output.
+    projection_tile_kernel<W, S><<<(unsigned)proj_blocks(npix), kProjThreads, smem, s>>>(
+        z, a1, b1, a2, b2, out, npix, step, (npix + kProjP - 1) / kProjP);
     return cudaGetLastError();
-}
-
-int sm_count() {
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n > 0 ? n : 132;
 }
 
 }  // namespace
@@ -307,23 +366,25 @@ CPPRE_EXPORT int cppre_fno_block2d_fwd(const void* x, const void* x3, const void
 #undef CPPRE_BLOCK_OUT
 }
 
-// Projection head; npix = B*V*Nx*Ny.
+// Projection head; npix = B*V*Nx*Ny, the hidden width 256, 1 <= step <= 10.
 CPPRE_EXPORT int cppre_projection2d_fwd(const void* z, const void* a1, const void* b1,
                                         const void* a2, const void* b2, void* out,
                                         long long npix, int W, int wp, int step, void* stream) {
-    if (step < 1 || step > kMaxStep) return (int)cudaErrorInvalidValue;
+    if (step < 1 || step > kMaxStep || wp != kProjHidden) return (int)cudaErrorInvalidValue;
+    if (npix < 1) return (int)cudaSuccess;
     cudaStream_t s = (cudaStream_t)stream;
-    const int n_sm = sm_count();
-#define CPPRE_PROJ(WW)                                                                          \
-    launch_projection<WW>((const float*)z, (const float*)a1, (const float*)b1,                 \
-                          (const float*)a2, (const float*)b2, (float*)out, npix, wp, step,    \
-                          n_sm, s)
+#define CPPRE_PROJ(WW, SS)                                                                      \
+    launch_projection<WW, SS>((const float*)z, (const float*)a1, (const float*)b1,             \
+                              (const float*)a2, (const float*)b2, (float*)out, npix, step, s)
+#define CPPRE_PROJ_W(WW)                                                                        \
+    (step == 1 ? CPPRE_PROJ(WW, 1) : step <= 4 ? CPPRE_PROJ(WW, 4) : CPPRE_PROJ(WW, 12))
     switch (W) {
-        case 4: return (int)CPPRE_PROJ(4);
-        case 8: return (int)CPPRE_PROJ(8);
-        case 16: return (int)CPPRE_PROJ(16);
-        case 32: return (int)CPPRE_PROJ(32);
+        case 4: return (int)CPPRE_PROJ_W(4);
+        case 8: return (int)CPPRE_PROJ_W(8);
+        case 16: return (int)CPPRE_PROJ_W(16);
+        case 32: return (int)CPPRE_PROJ_W(32);
         default: return (int)cudaErrorInvalidValue;
     }
+#undef CPPRE_PROJ_W
 #undef CPPRE_PROJ
 }

@@ -47,14 +47,18 @@
 // three W x W gradients in registers, so the partial scratch is one row
 // per block and no width spills.
 //
-// K7. One block of wp threads (one per hidden unit, 256 in FNO2d) walks a
-// fixed share of 32-pixel tiles: the tile's z and g are staged in shared
-// memory, each thread recomputes pre_j and gelu'(pre_j) for every pixel of
-// the tile and keeps its rows of da1 [wp, W], db1 and da2 [step, wp] in
-// registers across all its tiles; dpre goes through shared memory to form
-// dz = dpre a1. The grid is a constant (kProjBwdBlocks), so the split of
-// pixels over blocks, and the order of every sum, is the same on every
-// run. Bounded by the ~2.5k FMAs and one erff per (pixel, hidden unit).
+// K7. Per (pixel, hidden unit) 3W + 2*step multiply-adds (fc1 recomputed,
+// da1, dz; dh, da2) and one gelu with its derivative, against z and g read
+// and dz written once: bounded by the FP32 pipe and the shared-memory
+// loads that feed it. The tile walk and fc1 micro-tiles are K5's
+// (fno_tile.cuh's projection tiles), with two 4 x 4 micro-tiles a thread
+// for one float4 shared load per 8 FMAs; one erf a
+// (pixel, hidden unit) gives both h and gelu' (proj_gelu_and_grad,
+// common.cuh); dz is a micro-tile product over the hidden index split in
+// 128/W parts added in order, so every thread has 4 x 4 outputs; and each
+// thread keeps fixed micro-tiles of da1 and its column of da2, db1 in
+// registers across its block's tiles. A fixed grid (proj_blocks, a
+// function of npix alone) writes one partial row a block.
 
 #include "fno_dft.cuh"
 #include "fno_tile.cuh"
@@ -436,6 +440,7 @@ __global__ void reduce_rows_kernel(const float* __restrict__ in, long long n_row
         const long long rows = first ? n_rows : n_rows2, cols = first ? n : n2;
         const long long c = first ? k : k - n;
         float acc = 0.0f;
+#pragma unroll 8
         for (long long r = 0; r < rows; ++r) acc += src[r * cols + c];
         (first ? out : out2)[c] = acc;
     }
@@ -488,110 +493,227 @@ cudaError_t launch_bwd_tiles(const float* x, const float* g, const float* x3, co
 }
 
 // ---- K7: projection head backward --------------------------------------------
+// z [npix, W]; g [npix, step]; a1 [256, W]; b1 [256]; a2 [step, 256];
+// dz [npix, W]; partial [proj_blocks(npix), 256*W + 256 + step*256 + step]
+// as [da1 (j, i) | db1 (j) | da2 (s, j) | db2 (s)]. One tile of kProjP
+// pixels at a time (fno_tile.cuh's projection tiles), z and g of the next
+// tile copied with cp.async while the current one computes:
+//   1. per thread two 4 x 4 micro-tiles of pre = a1 z^T + b1 (as K5), one
+//      erf per (pixel, hidden unit) giving h and gelu'(pre)
+//      (proj_gelu_and_grad), dh = a2^T g (s in order), dpre = dh gelu';
+//      h and dpre go to shared memory [kProjP, kProjLdA];
+//   2. the weight-gradient sums over the tile's pixels, in pixel order,
+//      into registers each thread keeps across all its block's tiles:
+//      da2[:, t] and db1[t] for hidden unit t, da1 as 4 x 4 micro-tiles
+//      (dpre^T z), db2 for t < step; and dz's micro-tile (4 pixels x 4
+//      channels) over one of 128/W parts of the hidden index;
+//   3. the parts of dz, added in part order, written once, coalesced.
+// The block writes its partial row at the end; reduce_rows_kernel adds the
+// rows in block order.
 constexpr int kMaxStep = 10;
-constexpr int kProjTile = 32;
-constexpr int kProjBwdBlocks = 528;   // fixed: 4 per SM of an H100, one wave
-
-// z [npix, W]; g [npix, step]; a1 [wp, W]; b1 [wp]; a2 [step, wp]; dz [npix, W];
-// partial [kProjBwdBlocks, wp*W + wp + step*wp + step] as
-// [da1 (j, i) | db1 (j) | da2 (s, j) | db2 (s)]. blockDim.x == wp.
-template <int W>
-__global__ void projection_bwd_kernel(const float* __restrict__ z, const float* __restrict__ g,
-                                      const float* __restrict__ a1, const float* __restrict__ b1,
-                                      const float* __restrict__ a2, float* __restrict__ dz,
-                                      float* __restrict__ partial, long long npix, int wp,
-                                      int step) {
-    extern __shared__ float smem[];
-    float* s_a1 = smem;                          // [wp, W]
-    float* s_z = s_a1 + wp * W;                  // [kProjTile, W]
-    float* s_g = s_z + kProjTile * W;            // [kProjTile, step]
-    float* s_dp = s_g + kProjTile * kMaxStep;    // [kProjTile, wp]
-    const int j = threadIdx.x;                   // this thread's hidden unit
-    for (int i = threadIdx.x; i < wp * W; i += blockDim.x) s_a1[i] = a1[i];
-
-    float a1r[W], da1[W], a2r[kMaxStep], da2[kMaxStep];
-#pragma unroll
-    for (int i = 0; i < W; ++i) {
-        a1r[i] = a1[j * W + i];
-        da1[i] = 0.0f;
-    }
-#pragma unroll
-    for (int s = 0; s < kMaxStep; ++s) {
-        a2r[s] = s < step ? a2[s * wp + j] : 0.0f;
-        da2[s] = 0.0f;
-    }
-    const float b1j = b1[j];
-    float db1 = 0.0f, db2 = 0.0f;
-
-    const long long n_tiles = (npix + kProjTile - 1) / kProjTile;
-    for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-        const long long p0 = t * kProjTile;
-        const int n = (int)(npix - p0 < kProjTile ? npix - p0 : kProjTile);
-        __syncthreads();                         // the previous tile is consumed
-        for (int q = threadIdx.x; q < n * W; q += blockDim.x) s_z[q] = z[p0 * W + q];
-        for (int q = threadIdx.x; q < n * step; q += blockDim.x) s_g[q] = g[p0 * step + q];
-        __syncthreads();
-        for (int p = 0; p < n; ++p) {
-            float pre = b1j;
-#pragma unroll
-            for (int i = 0; i < W; ++i) pre += a1r[i] * s_z[p * W + i];
-            const float h = gelu_exact(pre);
-            float dh = 0.0f;
-#pragma unroll
-            for (int s = 0; s < kMaxStep; ++s) {
-                if (s < step) {
-                    const float gv = s_g[p * step + s];
-                    dh += gv * a2r[s];
-                    da2[s] += gv * h;
-                }
-            }
-            const float dp = dh * gelu_grad_exact(pre);
-            s_dp[p * wp + j] = dp;
-            db1 += dp;
-#pragma unroll
-            for (int i = 0; i < W; ++i) da1[i] += dp * s_z[p * W + i];
-        }
-        __syncthreads();
-        for (int q = threadIdx.x; q < n * W; q += blockDim.x) {
-            const int p = q / W, i = q % W;
-            float acc = 0.0f;
-            for (int k = 0; k < wp; ++k) acc += s_dp[p * wp + k] * s_a1[k * W + i];
-            dz[p0 * W + q] = acc;
-        }
-        if (j < step)
-            for (int p = 0; p < n; ++p) db2 += s_g[p * step + j];
-    }
-
-    const long long np = (long long)wp * W + wp + (long long)step * wp + step;
-    float* out = partial + blockIdx.x * np;
-#pragma unroll
-    for (int i = 0; i < W; ++i) out[j * W + i] = da1[i];
-    out[wp * W + j] = db1;
-#pragma unroll
-    for (int s = 0; s < kMaxStep; ++s)
-        if (s < step) out[wp * W + wp + s * wp + j] = da2[s];
-    if (j < step) out[wp * W + wp + step * wp + j] = db2;
+template <int W, int S>
+__host__ __device__ constexpr int proj_bwd_floats() {
+    return W * kProjLdA + kProjHidden * S + kProjHidden + 2 * kProjP * proj_ldz(W) +
+           2 * kProjP * S + 2 * kProjP * kProjLdA;
 }
 
-template <int W>
+template <int W, int S>
+__global__ void __launch_bounds__(kProjThreads, 2)
+    projection_bwd_tile_kernel(const float* __restrict__ z, const float* __restrict__ g,
+                               const float* __restrict__ a1, const float* __restrict__ b1,
+                               const float* __restrict__ a2, float* __restrict__ dz,
+                               float* __restrict__ partial, long long npix, int step,
+                               long long n_tiles) {
+    constexpr int LDZ = proj_ldz(W), ZT = kProjP * LDZ, GT = kProjP * S;
+    constexpr int NA = 16 * W, QA = (NA + kProjThreads - 1) / kProjThreads;  // da1 micro-tiles
+    constexpr int NMT = 2 * W, HP = 2 * W, KS = kProjHidden / HP;  // dz micro-tiles, parts
+    extern __shared__ float4 smem4[];
+    float* sA1T = reinterpret_cast<float*>(smem4);   // [W, kProjLdA]
+    float* sA2T = sA1T + W * kProjLdA;                // [256, S]
+    float* sB1 = sA2T + kProjHidden * S;               // [256]
+    float* sZ = sB1 + kProjHidden;                     // [2][kProjP, LDZ]
+    float* sG = sZ + 2 * ZT;                           // [2][kProjP, S]
+    float* sH = sG + 2 * GT;                           // [kProjP, kProjLdA]: h, then dz parts
+    float* sD = sH + kProjP * kProjLdA;                // [kProjP, kProjLdA]: dpre
+    proj_stage_weights<W, S>(a1, b1, a2, step, sA1T, sB1, sA2T);
+
+    const int t = threadIdx.x, pg = t & 7, hs = t >> 3;
+    const int part = t / NMT, dz_i0 = 4 * ((t % NMT) >> 3);
+    float gacc[QA][4][4], acc2[S], db1 = 0.0f, db2 = 0.0f;
+#pragma unroll
+    for (int q = 0; q < QA; ++q) tile_zero(gacc[q]);
+#pragma unroll
+    for (int s = 0; s < S; ++s) acc2[s] = 0.0f;
+
+    long long t0, t1;
+    tile_range(n_tiles, &t0, &t1);
+    if (t0 < t1) {
+        proj_load_z_async<W>(z, t0 * kProjP, npix, sZ);
+        proj_load_g_async<S>(g, t0 * kProjP, npix, step, sG);
+    }
+    copy_async_commit();
+    for (long long ti = t0; ti < t1; ++ti) {
+        const int buf = (int)((ti - t0) & 1);
+        if (ti + 1 < t1) {
+            proj_load_z_async<W>(z, (ti + 1) * kProjP, npix, sZ + (buf ^ 1) * ZT);
+            proj_load_g_async<S>(g, (ti + 1) * kProjP, npix, step, sG + (buf ^ 1) * GT);
+        }
+        copy_async_commit();
+        copy_async_wait<1>();
+        __syncthreads();
+        const float* zt = sZ + buf * ZT;
+        const float* gt = sG + buf * GT;
+
+        // 1. recompute, gelu and gelu', dpre (pixels past npix have g = 0)
+#pragma unroll 1
+        for (int ch = 0; ch < 2; ++ch) {
+            const int c0 = 8 * hs + 4 * ch;
+            float pre[4][4], dh[4][4];
+            proj_fc1<W>(pre, sA1T, c0, zt + pg * LDZ);
+            tile_zero(dh);
+#pragma unroll 2
+            for (int s = 0; s < S; ++s) {
+                float gv[4], wv[4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) gv[j] = gt[(pg + 8 * j) * S + s];
+#pragma unroll
+                for (int a = 0; a < 4; ++a) wv[a] = sA2T[(c0 + a) * S + s];
+#pragma unroll
+                for (int a = 0; a < 4; ++a)
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) dh[a][j] = fmaf(wv[a], gv[j], dh[a][j]);
+            }
+#pragma unroll
+            for (int a = 0; a < 4; ++a) {
+                const float b = sB1[c0 + a];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    float d;
+                    proj_gelu_and_grad(pre[a][j] + b, pre[a][j], d);
+                    dh[a][j] *= d;
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const int row = (pg + 8 * j) * kProjLdA + c0;
+                store4(sH + row, pre[0][j], pre[1][j], pre[2][j], pre[3][j]);
+                store4(sD + row, dh[0][j], dh[1][j], dh[2][j], dh[3][j]);
+            }
+        }
+        __syncthreads();
+
+        // 2. the tile's share of the weight-gradient sums, in pixel order
+#pragma unroll 2
+        for (int p = 0; p < kProjP; ++p) {                 // da2, db1 at hidden unit t
+            const float hv = sH[p * kProjLdA + t];
+            db1 += sD[p * kProjLdA + t];
+#pragma unroll
+            for (int s = 0; s < S; ++s) acc2[s] = fmaf(gt[p * S + s], hv, acc2[s]);
+        }
+        if (t < step)
+            for (int p = 0; p < kProjP; ++p) db2 += gt[p * S + t];
+#pragma unroll
+        for (int q = 0; q < QA; ++q) {                     // da1 += dpre^T z
+            const int m = t + q * kProjThreads;
+            if (m < NA) {
+                const int rest = m >> 3, ig = rest % (W / 4);
+                const int cg = (rest / (W / 4)) * 8 + (m & 7);
+#pragma unroll 4
+                for (int p = 0; p < kProjP; ++p) {
+                    float dv[4], zv[4];
+                    load4(dv, sD + p * kProjLdA + 4 * cg);
+                    load4(zv, zt + p * LDZ + 4 * ig);
+#pragma unroll
+                    for (int a = 0; a < 4; ++a)
+#pragma unroll
+                        for (int b = 0; b < 4; ++b)
+                            gacc[q][a][b] = fmaf(dv[a], zv[b], gacc[q][a][b]);
+                }
+            }
+        }
+        float acc[4][4];                                   // dz: pixel j, channel dz_i0 + i
+        tile_zero(acc);
+#pragma unroll 2
+        for (int c = part * HP; c < (part + 1) * HP; c += 4) {
+            float dv[4][4], av[4][4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) load4(dv[j], sD + (pg + 8 * j) * kProjLdA + c);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) load4(av[i], sA1T + (dz_i0 + i) * kProjLdA + c);
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) acc[j][i] = fmaf(dv[j][cc], av[i][cc], acc[j][i]);
+        }
+        __syncthreads();                                   // h is read: its room takes dz's parts
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            store4(sH + (part * kProjP + pg + 8 * j) * W + dz_i0, acc[j][0], acc[j][1], acc[j][2],
+                   acc[j][3]);
+        __syncthreads();
+
+        // 3. dz, the parts in order
+        const long long pb = ti * kProjP;
+#pragma unroll
+        for (int n = 0; n < (kProjP * W + kProjThreads - 1) / kProjThreads; ++n) {
+            const int k = t + n * kProjThreads;
+            if (k < kProjP * W && pb + k / W < npix) {
+                float v = sH[k];
+#pragma unroll
+                for (int r = 1; r < KS; ++r) v += sH[r * kProjP * W + k];
+                dz[pb * W + k] = v;
+            }
+        }   // the next tile's first __syncthreads frees this one's buffers
+    }
+    copy_async_wait<0>();
+
+    const long long np = (long long)kProjHidden * W + kProjHidden + (long long)step * kProjHidden +
+                         step;
+    float* out = partial + (long long)blockIdx.x * np;
+#pragma unroll
+    for (int q = 0; q < QA; ++q) {
+        const int m = t + q * kProjThreads;
+        if (m < NA) {
+            const int rest = m >> 3, ig = rest % (W / 4);
+            const int cg = (rest / (W / 4)) * 8 + (m & 7);
+#pragma unroll
+            for (int a = 0; a < 4; ++a)
+#pragma unroll
+                for (int b = 0; b < 4; ++b) out[(4 * cg + a) * W + 4 * ig + b] = gacc[q][a][b];
+        }
+    }
+    out[kProjHidden * W + t] = db1;
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+        if (s < step) out[kProjHidden * W + kProjHidden + s * kProjHidden + t] = acc2[s];
+    if (t < step) out[kProjHidden * W + kProjHidden + step * kProjHidden + t] = db2;
+}
+
+template <int W, int S>
 cudaError_t launch_projection_bwd(const float* z, const float* g, const float* a1,
                                   const float* b1, const float* a2, float* dz, float* partial,
-                                  float* red, long long npix, int wp, int step, cudaStream_t s) {
-    const size_t smem = sizeof(float) * ((size_t)wp * W + kProjTile * W + kProjTile * kMaxStep +
-                                         (size_t)kProjTile * wp);
-    cudaError_t err = allow_smem(projection_bwd_kernel<W>, smem);
+                                  float* red, long long npix, int step, cudaStream_t s) {
+    const size_t smem = sizeof(float) * proj_bwd_floats<W, S>();
+    cudaError_t err = allow_smem(projection_bwd_tile_kernel<W, S>, smem);
     if (err != cudaSuccess) return err;
-    projection_bwd_kernel<W><<<kProjBwdBlocks, wp, smem, s>>>(z, g, a1, b1, a2, dz, partial, npix,
-                                                              wp, step);
+    const long long n_blocks = proj_blocks(npix);
+    projection_bwd_tile_kernel<W, S><<<(unsigned)n_blocks, kProjThreads, smem, s>>>(
+        z, g, a1, b1, a2, dz, partial, npix, step, (npix + kProjP - 1) / kProjP);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    const long long np = (long long)wp * W + wp + (long long)step * wp + step;
-    return launch_reduce_rows(partial, kProjBwdBlocks, np, red, nullptr, 0, 0, nullptr, s);
+    const long long np = (long long)kProjHidden * W + kProjHidden + (long long)step * kProjHidden +
+                         step;
+    return launch_reduce_rows(partial, n_blocks, np, red, nullptr, 0, 0, nullptr, s);
 }
 
 }  // namespace
 
-// Rows of the partial-sum scratch K7 takes (`partial` is [rows, np]).
-CPPRE_EXPORT int cppre_projection2d_bwd_blocks() { return kProjBwdBlocks; }
+// Rows of the partial-sum scratch K7 takes for npix pixels (`partial` is
+// [rows, 256*W + 256 + step*256 + step]).
+CPPRE_EXPORT long long cppre_projection2d_bwd_blocks(long long npix) {
+    return proj_blocks(npix);
+}
 
 // Rows of the partial-sum scratch K6 takes at this shape (`partial` is
 // [rows, 3W^2 + 2W]): the blocks of its stage 2.
@@ -670,23 +792,29 @@ CPPRE_EXPORT int cppre_fno_block2d_bwd(
                                    (long long)W * V * nx * ny, (float*)dx3, s);
 }
 
-// Projection head backward; npix = B*V*Nx*Ny, 1 <= step <= 10, wp <= 1024.
+// Projection head backward; npix = B*V*Nx*Ny >= 1, the hidden width 256,
+// 1 <= step <= 10.
 CPPRE_EXPORT int cppre_projection2d_bwd(const void* z, const void* g, const void* a1,
                                         const void* b1, const void* a2, void* dz, void* partial,
                                         void* red, long long npix, int W, int wp, int step,
                                         void* stream) {
-    if (step < 1 || step > kMaxStep || wp < 1 || wp > 1024) return (int)cudaErrorInvalidValue;
+    if (step < 1 || step > kMaxStep || wp != kProjHidden || npix < 1)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-#define CPPRE_PROJ_BWD(WW)                                                                      \
-    launch_projection_bwd<WW>((const float*)z, (const float*)g, (const float*)a1,              \
-                              (const float*)b1, (const float*)a2, (float*)dz, (float*)partial, \
-                              (float*)red, npix, wp, step, s)
+#define CPPRE_PROJ_BWD(WW, SS)                                                                  \
+    launch_projection_bwd<WW, SS>((const float*)z, (const float*)g, (const float*)a1,          \
+                                  (const float*)b1, (const float*)a2, (float*)dz,              \
+                                  (float*)partial, (float*)red, npix, step, s)
+#define CPPRE_PROJ_BWD_W(WW)                                                                    \
+    (step == 1 ? CPPRE_PROJ_BWD(WW, 1)                                                          \
+               : step <= 4 ? CPPRE_PROJ_BWD(WW, 4) : CPPRE_PROJ_BWD(WW, 12))
     switch (W) {
-        case 4: return (int)CPPRE_PROJ_BWD(4);
-        case 8: return (int)CPPRE_PROJ_BWD(8);
-        case 16: return (int)CPPRE_PROJ_BWD(16);
-        case 32: return (int)CPPRE_PROJ_BWD(32);
+        case 4: return (int)CPPRE_PROJ_BWD_W(4);
+        case 8: return (int)CPPRE_PROJ_BWD_W(8);
+        case 16: return (int)CPPRE_PROJ_BWD_W(16);
+        case 32: return (int)CPPRE_PROJ_BWD_W(32);
         default: return (int)cudaErrorInvalidValue;
     }
+#undef CPPRE_PROJ_BWD_W
 #undef CPPRE_PROJ_BWD
 }

@@ -286,4 +286,110 @@ __device__ __forceinline__ void tile_range(long long n_tiles, long long* t0, lon
     *t1 = n_tiles * (blockIdx.x + 1) / gridDim.x;
 }
 
+// ---- the projection head's pixel tiles (K5, K7) ------------------------------
+// fc1 [256, W] -> gelu -> fc2 [step, 256] at every pixel of z [npix, W]. A
+// tile is kProjP consecutive pixels; its z slice (contiguous in device
+// memory) is staged pixel-major at row stride proj_ldz(W) (4 mod 8 floats,
+// so the float4 reads of 8 consecutive rows fall in distinct banks), fc1
+// transposed [W, kProjLdA] (hidden units contiguous).
+//
+// A block has kProjThreads threads. In the fc1 product thread t owns the
+// pixels pg + 8j (pg = t % 8, j < 4) and the hidden units 8*(t/8) .. +7 as
+// two 4 x 4 micro-tiles: a warp reads 8 distinct z rows and 4 distinct fc1
+// columns, one shared-memory wavefront each per 16 FMAs a thread. The sum
+// over k runs in one thread, in index order, so a pixel's arithmetic never
+// depends on its tile, block, thread or batch. The hidden width is fixed:
+// every FNO2d projects to 256 (cppre's Base_FNO).
+constexpr int kProjHidden = 256;
+constexpr int kProjP = 32;                    // pixels of a tile
+constexpr int kProjThreads = 256;
+constexpr int kProjLdA = kProjHidden + 4;     // row stride of fc1^T, h and dpre tiles
+
+__host__ __device__ constexpr int proj_ldz(int W) { return W % 8 == 0 ? W + 4 : W + 8; }
+
+// Blocks of K5 and K7: a function of npix alone (at most 2 an SM of an H100,
+// their launch bound, so one wave), each walking a contiguous range of
+// tiles in order. So the split of tiles over blocks, and the order of K7's
+// weight-gradient sums, is the same on every run.
+constexpr long long kProjBlocks = 264;
+
+inline long long proj_blocks(long long npix) {
+    const long long n_tiles = (npix + kProjP - 1) / kProjP;
+    return n_tiles < kProjBlocks ? n_tiles : kProjBlocks;
+}
+
+__device__ __forceinline__ void load4(float (&v)[4], const float* p) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+}
+
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
+// fc1 a1 [256, W] -> sA1T [W, kProjLdA]; b1 -> sB1 [256]; fc2 a2 [step, 256]
+// -> sA2T [256, S], zero for s >= step.
+template <int W, int S>
+__device__ __forceinline__ void proj_stage_weights(const float* a1, const float* b1,
+                                                   const float* a2, int step, float* sA1T,
+                                                   float* sB1, float* sA2T) {
+    for (int i = threadIdx.x; i < kProjHidden * W; i += blockDim.x)
+        sA1T[(i % W) * kProjLdA + i / W] = a1[i];
+    for (int i = threadIdx.x; i < kProjHidden; i += blockDim.x) sB1[i] = b1[i];
+    for (int i = threadIdx.x; i < kProjHidden * S; i += blockDim.x) {
+        const int c = i / S, s = i - c * S;
+        sA2T[i] = s < step ? a2[s * kProjHidden + c] : 0.0f;
+    }
+}
+
+// Start copying the pixels [p0, p0 + kProjP) of z [npix, W] into dst
+// [kProjP, proj_ldz(W)], 16 bytes at a time; pixels past npix read as 0.
+template <int W>
+__device__ __forceinline__ void proj_load_z_async(const float* z, long long p0, long long npix,
+                                                  float* dst) {
+    constexpr int Q = W / 4;
+    for (int i = threadIdx.x; i < kProjP * Q; i += blockDim.x) {
+        const int p = i / Q, q = i - p * Q;
+        const bool ok = p0 + p < npix;
+        copy_async16(dst + p * proj_ldz(W) + 4 * q, ok ? z + (p0 + p) * W + 4 * q : z, ok);
+    }
+}
+
+// The same for the pixels' rows of g [npix, step] into dst [kProjP, S],
+// 4 bytes at a time (a row need not be 16-byte aligned); s >= step reads 0.
+template <int S>
+__device__ __forceinline__ void proj_load_g_async(const float* g, long long p0, long long npix,
+                                                  int step, float* dst) {
+    for (int i = threadIdx.x; i < kProjP * S; i += blockDim.x) {
+        const int p = i / S, s = i - p * S;
+        const bool ok = p0 + p < npix && s < step;
+        copy_async4(dst + i, ok ? g + (p0 + p) * step + s : g, ok);
+    }
+}
+
+// acc[a][j] = sum_{k < W} a1[c0 + a, k] z[pixel j, k], k in order; zp points
+// at the thread's first pixel row, its pixels 8 rows apart.
+template <int W>
+__device__ __forceinline__ void proj_fc1(float (&acc)[4][4], const float* sA1T, int c0,
+                                         const float* zp) {
+    tile_zero(acc);
+#pragma unroll
+    for (int k = 0; k < W; k += 4) {
+        float zv[4][4], av[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) load4(zv[j], zp + j * 8 * proj_ldz(W) + k);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) load4(av[kk], sA1T + (k + kk) * kProjLdA + c0);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int a = 0; a < 4; ++a)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) acc[a][j] = fmaf(av[kk][a], zv[j][kk], acc[a][j]);
+    }
+}
+
 }  // namespace

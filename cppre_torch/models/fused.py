@@ -43,7 +43,8 @@ __all__ = ["fno2d_forward_fused", "fused_supported", "make_fused_apply",
 
 def _limits(model: FNO2d, x_shape, backward: bool = False):
     return fno_kernel_limits(model.width_time, model.step, x_shape[2], x_shape[3],
-                             model.modes1, model.modes2, backward)
+                             model.modes1, model.modes2, backward,
+                             hidden=model.fc1_time.weight.shape[0])
 
 
 def fused_supported(model: FNO2d, x_shape, backward: bool = False) -> bool:

@@ -55,10 +55,12 @@ __all__ = [
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 # What the CUDA kernels are compiled for (csrc/fno_block*.cu): the channel
-# widths of the register-resident stages, the head's widest output step, and
-# the shared memory of one block.
+# widths of the register-resident stages, the head's widest output step, its
+# hidden width (every FNO2d's 256; csrc/fno_tile.cuh, kProjHidden), and the
+# shared memory of one block.
 KERNEL_WIDTHS = (4, 8, 16, 32)
 KERNEL_MAX_STEP = 10
+KERNEL_HIDDEN = 256
 _SMEM_LIMIT = 227 * 1024
 
 
@@ -110,18 +112,20 @@ def _tile_smem(width: int, nx: int, ny: int, m2: int, backward: bool) -> int:
 
 
 def fno_kernel_limits(width: int, step: int, nx: int, ny: int, m1: int, m2: int,
-                      backward: bool = False) -> list[str]:
+                      backward: bool = False, hidden: int = KERNEL_HIDDEN) -> list[str]:
     """The limits of kernels K4 and K5 (with `backward`, also K6 and K7)
     that this configuration breaks, in words; empty when they take it. The
-    limits: a compiled width, 1 <= step <= 10, the modes within the one-sided
-    spectrum (2*m1 <= Nx, m2 <= Ny//2+1), and the forward-DFT stage's planes,
-    the inverse-x stage's tables and the pixel-tile stage (K4's or K6's)
-    each within one block's shared memory."""
+    limits: a compiled width, 1 <= step <= 10, the head's hidden width 256,
+    the modes within the one-sided spectrum (2*m1 <= Nx, m2 <= Ny//2+1), and
+    the forward-DFT stage's planes, the inverse-x stage's tables and the
+    pixel-tile stage (K4's or K6's) each within one block's shared memory."""
     broken = []
     if width not in KERNEL_WIDTHS:
         broken.append(f"width {width} is not one of the compiled widths {KERNEL_WIDTHS}")
     if not 1 <= step <= KERNEL_MAX_STEP:
         broken.append(f"step {step} is outside 1..{KERNEL_MAX_STEP}")
+    if hidden != KERNEL_HIDDEN:
+        broken.append(f"hidden width {hidden} of the projection head is not {KERNEL_HIDDEN}")
     if not (2 * m1 <= nx and m2 <= ny // 2 + 1):
         broken.append(f"modes ({m1}, {m2}) exceed the {nx}x{ny} grid's one-sided spectrum")
     plane = _dft_smem(nx, ny, m2, 2 * m1)
@@ -401,21 +405,31 @@ def projection2d_plain(z, fc1, fc2):
     return F.linear(F.gelu(F.linear(z, fc1.weight, fc1.bias)), fc2.weight, fc2.bias)
 
 
+def _check_head(what, z, w_ch, w_proj, step):
+    """Raise on what K5 and K7 do not take: the width, step and hidden width
+    they are compiled for, a non-contiguous or unaligned z."""
+    if w_ch not in KERNEL_WIDTHS or not 1 <= step <= KERNEL_MAX_STEP or w_proj != KERNEL_HIDDEN:
+        raise ValueError(f"{what}: width {w_ch} / step {step} / hidden {w_proj} not compiled "
+                         f"(widths {KERNEL_WIDTHS}, step <= {KERNEL_MAX_STEP}, "
+                         f"hidden {KERNEL_HIDDEN})")
+    _build.require(z, "z")
+    if z.data_ptr() % 16:
+        raise ValueError(f"{what}: z must start at a 16-byte boundary")
+
+
 def projection2d_fused(z, fc1, fc2):
     """Projection head (kernel K5): z [B, V, Nx, Ny, W] -> [B, V, Nx, Ny, step],
-    fc1/fc2 the model's `fc1_time`/`fc2_time` (weights [Wp, W], [step, Wp]).
-    The hidden activation stays on chip."""
+    fc1/fc2 the model's `fc1_time`/`fc2_time` (weights [256, W], [step, 256]).
+    The hidden activation stays on chip. On CUDA z must start at a 16-byte
+    boundary (the kernel copies its tiles 16 bytes at a time)."""
     if z.ndim != 5:
         raise ValueError(f"projection2d_fused: expected z [B, V, Nx, Ny, W], got {tuple(z.shape)}")
     if not _build.on_cuda(z):
         return projection2d_plain(z, fc1, fc2)
     w_ch = z.shape[-1]
     w_proj, step = fc1.weight.shape[0], fc2.weight.shape[0]
-    if w_ch not in KERNEL_WIDTHS or not 1 <= step <= KERNEL_MAX_STEP:
-        raise ValueError(f"projection2d_fused: width {w_ch} / step {step} not compiled "
-                         f"(widths {KERNEL_WIDTHS}, step <= {KERNEL_MAX_STEP})")
+    _check_head("projection2d_fused", z, w_ch, w_proj, step)
     dev = z.device
-    _build.require(z, "z")
     ws = [p.detach().contiguous() for p in (fc1.weight, fc1.bias, fc2.weight, fc2.bias)]
     for name, p, shape in zip(("fc1.weight", "fc1.bias", "fc2.weight", "fc2.bias"), ws,
                               ((w_proj, w_ch), (w_proj,), (step, w_proj), (step,))):
@@ -450,9 +464,10 @@ def projection2d_bwd_plain(z, g, fc1, fc2):
 def projection2d_bwd_fused(z, g, fc1, fc2):
     """Backward of the projection head (kernel K7): z [B, V, Nx, Ny, W] the
     head's input, g [B, V, Nx, Ny, step] the cotangent of its output.
-    Returns (dz, da1 [Wp, W], db1 [Wp], da2 [step, Wp], db2 [step]), the
-    weight grads summed over every pixel in a fixed order. The [.., Wp]
-    hidden activation stays on chip."""
+    Returns (dz, da1 [256, W], db1 [256], da2 [step, 256], db2 [step]), the
+    weight grads summed over every pixel in a fixed order. The [.., 256]
+    hidden activation stays on chip. On CUDA z must start at a 16-byte
+    boundary."""
     if z.ndim != 5:
         raise ValueError(f"projection2d_bwd_fused: expected z [B, V, Nx, Ny, W], "
                          f"got {tuple(z.shape)}")
@@ -460,19 +475,16 @@ def projection2d_bwd_fused(z, g, fc1, fc2):
         return projection2d_bwd_plain(z, g, fc1, fc2)
     w_ch = z.shape[-1]
     w_proj, step = fc1.weight.shape[0], fc2.weight.shape[0]
-    if w_ch not in KERNEL_WIDTHS or not 1 <= step <= KERNEL_MAX_STEP or not 1 <= w_proj <= 1024:
-        raise ValueError(f"projection2d_bwd_fused: width {w_ch} / step {step} / hidden "
-                         f"{w_proj} not compiled (widths {KERNEL_WIDTHS}, "
-                         f"step <= {KERNEL_MAX_STEP}, hidden <= 1024)")
+    _check_head("projection2d_bwd_fused", z, w_ch, w_proj, step)
     dev = z.device
-    _build.require(z, "z")
     _build.require(g, "g", z.shape[:-1] + (step,), device=dev)
     a1, b1, a2 = (p.detach().contiguous() for p in (fc1.weight, fc1.bias, fc2.weight))
     for name, p, shape in zip(("fc1.weight", "fc1.bias", "fc2.weight"), (a1, b1, a2),
                               ((w_proj, w_ch), (w_proj,), (step, w_proj))):
         _build.require(p, name, shape, device=dev)
+    npix = z.numel() // w_ch
     lib = _build.library("fno_block_bwd")
-    n_blocks = _build.declare(lib, "cppre_projection2d_bwd_blocks", [])()
+    n_blocks = _build.declare(lib, "cppre_projection2d_bwd_blocks", [_LL], _LL)(npix)
     n_part = w_proj * w_ch + w_proj + step * w_proj + step
     f32 = dict(device=dev, dtype=torch.float32)
     dz = torch.empty_like(z)
@@ -481,7 +493,7 @@ def projection2d_bwd_fused(z, g, fc1, fc2):
     fn = _build.declare(lib, "cppre_projection2d_bwd", [_P] * 8 + [_LL, _I, _I, _I, _P])
     with torch.cuda.device(dev):
         rc = fn(*(p.data_ptr() for p in (z, g, a1, b1, a2, dz, partial, red)),
-                z.numel() // w_ch, w_ch, w_proj, step, _build.stream_of(z))
+                npix, w_ch, w_proj, step, _build.stream_of(z))
     _build.check(lib, rc, "projection2d_bwd_fused")
     projection2d_bwd_fused.launches += 1
     o1, o2 = w_proj * w_ch, w_proj * w_ch + w_proj

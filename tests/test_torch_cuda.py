@@ -94,7 +94,17 @@ def test_fno_block_kernel(dev, width, nx, ny, m1, m2):
                K.fno_block2d_plain(x, model.f1, x3, m1, m2), 1e-4)
 
 
-@pytest.mark.parametrize("width,step", [(4, 1), (16, 3), (32, 8), (16, 10), (32, 10)])
+# Every compiled width at every step class of K5/K7 (1, 2-4, 5-10), with
+# the first five cases of each test kept from before; besides z of 378
+# pixels (not a multiple of the 32-pixel tile) each case takes npix 15
+# (below one tile) and, at batch 7, 22 400 (the 264 blocks of K5's and
+# K7's fixed grid walk several tiles each).
+_HEAD_CASES = [(4, 1), (16, 3), (32, 8), (16, 10), (32, 10), (4, 3), (4, 10), (8, 1), (8, 3),
+               (8, 10), (16, 1), (32, 1), (32, 3)]
+_HEAD_SHAPES = [(1, 1, 3, 5), (7, 2, 40, 40)]
+
+
+@pytest.mark.parametrize("width,step", _HEAD_CASES)
 def test_projection_kernel(dev, width, step):
     model = FNO2d(1, step, 2, 2, 2, width, device=dev,
                   generator=torch.Generator().manual_seed(step))
@@ -102,6 +112,14 @@ def test_projection_kernel(dev, width, step):
     with torch.no_grad():
         _close(K.projection2d_fused(z, model.fc1_time, model.fc2_time),
                K.projection2d_plain(z, model.fc1_time, model.fc2_time), 1e-4)
+        for i, shape in enumerate(_HEAD_SHAPES):
+            z = _randn(shape + (width,), 70 + i, dev)
+            got = K.projection2d_fused(z, model.fc1_time, model.fc2_time)
+            _close(got, K.projection2d_plain(z, model.fc1_time, model.fc2_time), 1e-4)
+            # a sample alone gives the bits it has inside the batch
+            last = shape[0] - 1
+            assert torch.equal(K.projection2d_fused(z[last:].contiguous(), model.fc1_time,
+                                                    model.fc2_time), got[last:])
 
 
 def test_fused_forward_is_batch_invariant_and_matches_the_model(dev):
@@ -227,16 +245,22 @@ def test_fno_block_bwd_blocks_walk_several_tiles(dev):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("width,step", [(4, 1), (16, 3), (32, 8), (16, 10), (32, 10)])
+@pytest.mark.parametrize("width,step", _HEAD_CASES)
 def test_projection_bwd_kernel(dev, width, step):
+    from cppre_torch.ops.kernels import _build
+
+    blocks = _build.declare(_build.library("fno_block_bwd"), "cppre_projection2d_bwd_blocks",
+                            [ctypes.c_longlong], ctypes.c_longlong)
+    assert blocks(7 * 2 * 40 * 40) * 32 < 7 * 2 * 40 * 40 / 2   # two tiles a block or more
     model = FNO2d(1, step, 2, 2, 2, width, device=dev,
                   generator=torch.Generator().manual_seed(step + 5))
-    z = _randn((3, 2, 7, 9, width), 12, dev)
-    g = _randn(z.shape[:-1] + (step,), 13, dev)
-    got = K.projection2d_bwd_fused(z, g, model.fc1_time, model.fc2_time)
-    _grads_close(got, K.projection2d_bwd_plain(z, g, model.fc1_time, model.fc2_time), "K7")
-    again = K.projection2d_bwd_fused(z, g, model.fc1_time, model.fc2_time)
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for i, shape in enumerate([(3, 2, 7, 9)] + _HEAD_SHAPES):
+        z = _randn(shape + (width,), 12 + 10 * i, dev)
+        g = _randn(z.shape[:-1] + (step,), 13 + 10 * i, dev)
+        got = K.projection2d_bwd_fused(z, g, model.fc1_time, model.fc2_time)
+        _grads_close(got, K.projection2d_bwd_plain(z, g, model.fc1_time, model.fc2_time), "K7")
+        again = K.projection2d_bwd_fused(z, g, model.fc1_time, model.fc2_time)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_fused_train_step_matches_plain_autograd(dev):

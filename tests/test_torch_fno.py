@@ -216,6 +216,22 @@ def test_kernel_limits_name_what_they_break():
     assert fused_supported(wide, (2, 3, 16, 128, 1))
     assert not fused_supported(wide, (2, 3, 16, 128, 1), backward=True)
     assert "K6's tile stage" in K.fno_kernel_limits(32, 1, 16, 128, 8, 60, backward=True)[0]
+    # the projection head's kernels K5 and K7 are built for 256 hidden units
+    assert K.fno_kernel_limits(16, 1, 100, 100, 8, 8, hidden=128) == [
+        "hidden width 128 of the projection head is not 256"]
+
+
+def test_fused_supported_reads_the_projection_hidden_width():
+    """A model whose fc1_time projects to another width than 256 is refused
+    by `fused_supported`, forward and backward."""
+    from cppre_torch.models.fno import _Linear
+
+    model = FNO2d(1, 1, 3, 3, NV, WIDTH, device="cpu", generator=torch.Generator().manual_seed(5))
+    assert fused_supported(model, (2, NV, 12, 10, 1), backward=True)
+    model.fc1_time = _Linear(WIDTH, 128, torch.Generator().manual_seed(6))
+    model.fc2_time = _Linear(128, 1, torch.Generator().manual_seed(7))
+    assert not fused_supported(model, (2, NV, 12, 10, 1))
+    assert not fused_supported(model, (2, NV, 12, 10, 1), backward=True)
 
 
 def test_generator_init_and_checkpoint_round_trip(tmp_path):
