@@ -32,7 +32,7 @@ timed. Phases, one line each:
   build      compile the kernels from `cppre_torch/csrc` (nvcc, in parallel);
              then one `ptxas` line per kernel function: registers and spills;
              a spill in any instance of the FNO kernels' stages (K4-K7:
-             `FNO_BLOCK_STAGES`) fails the run
+             `FNO_BLOCK_STAGES`) or of K1's and K8's bodies fails the run
   device     the card, and its name and power limit from nvidia-smi
   kernels    every kernel against its plain version at the main paths'
              shapes (K1, K2, K4, K5 at the NS serving shapes, K6, K7 at the
@@ -42,7 +42,9 @@ timed. Phases, one line each:
              and K4-K7 (K5/K7 at step 10) at the JOREK shapes): max abs
              / relative error, median times (CUDA events), the bound from
              bytes and operations, and for K8 the time of the one PyTorch
-             call (conv3d) that computes the same function
+             call (conv3d) that computes the same function; K1 also in the
+             centred form the score routes launch (its time and bound), and
+             K1's and K8's block counts
   serve      NS: CalibratedSurrogate(fused=True, score='aer+pre',
              mode='joint'): calibrate on 100 samples, predict 100
   calibrate  the same calibration scores through K1 (ns_joint_cp_scores_fused)
@@ -55,9 +57,10 @@ timed. Phases, one line each:
              100x100x21, 2 epochs x 20 steps at batch 5 through K4-K7, CP;
              solver seconds, losses, qhat, coverage at alpha=0.1, then the
              launches and median ms of one train step
-  profile    one train step under torch.profiler: device ms, the idle share
-             against the unprofiled median step time, and the ten largest
-             kernels
+  profile    one train step under torch.profiler: device ms (kernels and
+             memory operations), the idle share against the unprofiled
+             median step time, the annotated ranges left out, and the ten
+             largest kernels
   parity     one train step through K4-K7 and through plain autograd from
              the same weights and batch: the loss and every gradient agree
   wave, mhd, jorek
@@ -313,12 +316,15 @@ def _kernel_name(mangled):
 
 
 # The kernel functions of K4-K7 (csrc/fno_block.cu, fno_block_bwd.cu and
-# their headers): built to keep every width's and step's working set in
-# registers, so a spill in any of them is a fault of the build.
+# their headers), and of K1 and K8 (csrc/stencil_kernels.cu): built to keep
+# every instance's working set in registers, so a spill in any of them is a
+# fault of the build.
 FNO_BLOCK_STAGES = ("dft_fwd_kernel", "spectral_mix_kernel", "inverse_x_kernel",
                     "block_out_tile_kernel", "block_bwd_tile_kernel", "idft_dx_tile_kernel",
                     "spectral_adjoint_kernel", "reduce_rows_kernel", "projection_tile_kernel",
                     "projection_bwd_tile_kernel")
+NO_SPILL = {"fno_block": FNO_BLOCK_STAGES, "fno_block_bwd": FNO_BLOCK_STAGES,
+            "stencil_kernels": ("diff_stats_kernel", "stencil_march_kernel")}
 
 
 def ptxas_summary(report):
@@ -382,6 +388,25 @@ def report(results, kid, family, **extra):
         bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1],
         library_ms="none" if r.get("library_ms") is None else f"{r['library_ms']:.4f}",
         **extra)
+
+
+def k1_centred(r, truth, pred, cell, n_bytes, flops):
+    """K1 in the centred form every score route launches, beside the plain
+    form already in `r`: m2 against the plain version (1e-5 of max), its
+    time, and its bound, which adds m2's write and a second read of the diff
+    to the plain form's n_bytes, and 3 flops a diff (deviation, square,
+    add) to its flops; and K1's blocks and threads a block."""
+    from cppre_torch.ops.kernels import stencil_kernels as sk
+
+    run = lambda: sk._joint_cp_diff_stats(truth, pred, cell, centred=True)
+    d, _, _, m2 = run()
+    compare("K1 centred m2", m2, sk._diff_stats_plain(truth, pred, cell, centred=True)[3], 1e-5)
+    r.update(centred_ms=cuda_ms(run), centred_bound=bound(n_bytes + nbytes(m2, d),
+                                                          flops + 3 * d.numel()),
+             grid=sk._k1_grid(tuple(truth.shape), cell))
+    return dict(centred_ms=f"{r['centred_ms']:.4f}",
+                centred_bound_ms=f"{r['centred_bound'][0]:.4f}", blocks=r["grid"][0],
+                threads_a_block=r["grid"][1])
 
 
 def fno_kernels(results, family, device, width, modes, nvar, nx, ny, b_fwd, b_bwd, seed,
@@ -464,6 +489,7 @@ def phase_kernels(model, device):
     import torch
     from cppre_torch.cp import calibrate
     from cppre_torch.ops import kernels as K
+    from cppre_torch.ops.kernels import stencil_kernels as sk
 
     out = {}
     truth_np, pred_np = smooth_fields(N_CAL, T_OUT + 1, NX, NY, SEED + 1)
@@ -502,13 +528,14 @@ def phase_kernels(model, device):
                     N_CAL, ALPHA)
     _, rel_bf = compare("K1 bf16 qhat", qb, qb0, 1e-3)
     # two residuals, their difference, and the sum and sum of squares
+    k1_bytes, k1_flops = nbytes(truth, pred, d0, s0, q0), (2 * NS_RES_FLOPS + 4) * d0.numel()
     out[("K1", "ns")] = dict(
-        max_abs_err=err, rel_err=rel,
-        bound=bound(nbytes(truth, pred, d0, s0, q0), (2 * NS_RES_FLOPS + 4) * d0.numel()),
+        max_abs_err=err, rel_err=rel, bound=bound(k1_bytes, k1_flops),
         ms=cuda_ms(lambda: K.ns_joint_cp_diff_stats(truth, pred, *args)),
         plain_ms=cuda_ms(lambda: K.ns_joint_cp_diff_stats_plain(truth, pred, *args)))
+    centred = k1_centred(out[("K1", "ns")], truth, pred, sk._ns_cell(*args), k1_bytes, k1_flops)
     del truth, pred, d, s, q, d0, s0, q0
-    report(out, "K1", "ns", qhat=f"{float(qh):.6e}", qhat_bf16=f"{float(qb):.6e}",
+    report(out, "K1", "ns", **centred, qhat=f"{float(qh):.6e}", qhat_bf16=f"{float(qb):.6e}",
            qhat_bf16_vs_plain_bf16=f"{rel_bf:.3e}",
            qhat_bf16_vs_f32=f"{abs(float(qb) - float(qh)) / abs(float(qh)):.3e}")
     report(out, "K2", "ns")
@@ -525,6 +552,7 @@ def phase_kernels_wave(results, device):
     import torch.nn.functional as F
     from cppre_torch.experiments import wave
     from cppre_torch.ops import kernels as K
+    from cppre_torch.ops.kernels import stencil_kernels as sk
     from cppre_torch.residuals import PRE_Wave
     from cppre_torch.solvers import Wave2D
 
@@ -552,7 +580,8 @@ def phase_kernels_wave(results, device):
             r["library_ms"] = cuda_ms(conv)
         fam = "wave" if not take_abs else "wave-abs"
         results[("K8", fam)] = r
-        report(results, "K8", fam, taps=n_taps,
+        report(results, "K8", fam, taps=n_taps, blocks=sk._march_geom(tuple(truth.shape), 3)[2],
+               by_value=sk._taps_by_value(n_taps),
                **({"library": "torch.nn.functional.conv3d",
                    "library_max_abs_err": f"{lib_err:.3e}"} if not take_abs else {}))
         del got, ref
@@ -566,12 +595,15 @@ def phase_kernels_wave(results, device):
     same_bits("K1 wave", (d, s, q), K.wave_joint_cp_diff_stats(truth, pred, kern))
     compare("K1 wave scores", K.wave_joint_cp_scores_fused(truth, pred, kern, eps=EPS),
             K.wave_joint_cp_scores_plain(truth, pred, kern, eps=EPS), 1e-5)
+    k1_bytes = nbytes(truth, pred, d0, s0, q0)
+    k1_flops = (2 * (2 * n_taps - 1) + 4) * d0.numel()
     results[("K1", "wave")] = dict(
-        max_abs_err=err, rel_err=rel,
-        bound=bound(nbytes(truth, pred, d0, s0, q0), (2 * (2 * n_taps - 1) + 4) * d0.numel()),
+        max_abs_err=err, rel_err=rel, bound=bound(k1_bytes, k1_flops),
         ms=cuda_ms(lambda: K.wave_joint_cp_diff_stats(truth, pred, kern)),
         plain_ms=cuda_ms(lambda: K.wave_joint_cp_diff_stats_plain(truth, pred, kern)))
-    report(results, "K1", "wave", bitwise_rerun=True)
+    centred = k1_centred(results[("K1", "wave")], truth[:, None], pred[:, None],
+                         sk._taps_cell(kern), k1_bytes, k1_flops)
+    report(results, "K1", "wave", **centred, bitwise_rerun=True)
     del truth, pred, d, s, q, d0, s0, q0
     torch.cuda.empty_cache()
     fno_kernels(results, "wave", device, WAVE["width"], WAVE["modes"], WAVE["nvar"],
@@ -584,6 +616,7 @@ def phase_kernels_mhd(results, device):
     model's shapes."""
     import torch
     from cppre_torch.ops import kernels as K
+    from cppre_torch.ops.kernels import stencil_kernels as sk
 
     truth, pred = device_fields(MHD["res_shape"], SEED + 20, device, density=True)
     field_bytes = nbytes(truth) // 6
@@ -615,12 +648,14 @@ def phase_kernels_mhd(results, device):
     same_bits("K1 MHD", (d, s, q), K.mhd_joint_cp_diff_stats(truth, pred))
     in_bytes = 2 * MHD_FIELDS["induction"] * field_bytes
     ind = MHD_RES_FLOPS["induction"]
+    k1_bytes, k1_flops = in_bytes + nbytes(d0, s0, q0), (2 * ind + 1 + 4) * d0.numel()
     results[("K1", "mhd")] = dict(
-        max_abs_err=err, rel_err=rel,
-        bound=bound(in_bytes + nbytes(d0, s0, q0), (2 * ind + 1 + 4) * d0.numel()),
+        max_abs_err=err, rel_err=rel, bound=bound(k1_bytes, k1_flops),
         ms=cuda_ms(lambda: K.mhd_joint_cp_diff_stats(truth, pred)),
         plain_ms=cuda_ms(lambda: K.mhd_joint_cp_diff_stats_plain(truth, pred)))
-    report(results, "K1", "mhd", bitwise_rerun=True)
+    centred = k1_centred(results[("K1", "mhd")], truth, pred, sk._mhd_cell("induction"),
+                         k1_bytes, k1_flops)
+    report(results, "K1", "mhd", **centred, bitwise_rerun=True)
     del d, s, q, d0, s0, q0
 
     # K9 against K1 + the score epilogue and against its plain version
@@ -713,11 +748,13 @@ def phase_kernels_jorek(results, device):
               sk._joint_cp_diff_stats_chunked(truth, pred, cell, centred=True))
     eqf = JOREK_RES_FLOPS[c["equation"]]
     in_bytes = 2 * JOREK_FIELDS[c["equation"]] * field_bytes + R.nbytes
-    bnd = bound(in_bytes + nbytes(d0, s0, q0), (2 * eqf + 1 + 4) * d0.numel())
+    k1_bytes, k1_flops = in_bytes + nbytes(d0, s0, q0), (2 * eqf + 1 + 4) * d0.numel()
+    bnd = bound(k1_bytes, k1_flops)
     plain_ms = cuda_ms(lambda: K.jorek_joint_cp_diff_stats_chunked_plain(truth, pred, R, **coef))
     results[("K1", "jorek")] = dict(max_abs_err=err, rel_err=rel, bound=bnd, ms=cuda_ms(run_k1),
                                     plain_ms=plain_ms)
-    report(results, "K1", "jorek", bitwise_rerun=True)
+    centred = k1_centred(results[("K1", "jorek")], truth, pred, cell, k1_bytes, k1_flops)
+    report(results, "K1", "jorek", **centred, bitwise_rerun=True)
     results[("K3", "jorek")] = dict(
         max_abs_err=err, rel_err=rel, bound=bnd, plain_ms=plain_ms,
         ms=cuda_ms(lambda: K.jorek_joint_cp_diff_stats_chunked(truth, pred, R, **coef)))
@@ -842,12 +879,32 @@ def phase_train(device):
     return counts
 
 
+# What a profile's device ms sums: the kernels and memory operations on the
+# card (kineto's activity types), never a range annotated around them, such
+# as `Optimizer.step#Adam.step`, which spans its kernels and the gaps
+# between them.
+DEVICE_ACTIVITIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_activity(e):
+    """Whether a CUDA-side profiler event is a kernel or a memory operation;
+    None where the event tells neither its activity type nor whether it is
+    an annotated range (a PyTorch without those attributes)."""
+    kind = getattr(e, "activity_type", None)
+    if kind is not None:
+        return kind in DEVICE_ACTIVITIES
+    if not hasattr(e, "is_user_annotation"):
+        return None
+    return not e.is_user_annotation
+
+
 def profile_step(fn, step_ms, what="one train step"):
     """One call of `fn` under torch.profiler: its wall ms there, the device
-    ms summed over kernels, and the ten largest kernels by device ms. The
-    idle share is 1 - device ms / step_ms, the unprofiled median wall time
-    of the same call, since the profiler's own overhead lengthens the wall
-    time it sees."""
+    ms summed over its kernels and memory operations (`device_activity`),
+    the annotated ranges left out of that sum, and the ten largest kernels
+    by device ms. The idle share is 1 - device ms / step_ms, the unprofiled
+    median wall time of the same call, since the profiler's own overhead
+    lengthens the wall time it sees."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -856,17 +913,25 @@ def profile_step(fn, step_ms, what="one train step"):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    by_name = {}
+    by_name, ranges, unknown = {}, 0.0, False
     for e in prof.events():
-        if str(e.device_type).endswith("CUDA"):
-            name = re.sub(r"^(void )?(\(anonymous namespace\)::)?", "", e.name)
-            name = re.split(r"[<(]", name, maxsplit=1)[0] or e.name[:40]
-            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
-    device = sum(by_name.values())
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        activity = device_activity(e)
+        unknown |= activity is None
+        if not activity:
+            ranges += e.time_range.elapsed_us() / 1e3
+            continue
+        name = re.sub(r"^(void )?(\(anonymous namespace\)::)?", "", e.name)
+        name = re.split(r"[<(]", name, maxsplit=1)[0] or e.name[:40]
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    # where the events cannot be told apart, no device sum is printed
+    device = 0.0 if unknown else sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     say("profile", what=repr(what), profiled_wall_ms=f"{wall:.2f}",
         unprofiled_ms=f"{step_ms:.2f}", device_ms=f"{device:.2f}" if device else "not measured",
         idle_share=f"{1 - device / step_ms:.3f}" if device else "not measured",
+        annotated_ranges_ms="not measured" if unknown else f"{ranges:.2f}",
         top=json.dumps({k: round(v, 3) for k, v in top}))
 
 
@@ -1359,11 +1424,11 @@ def main():
     for name in _build.SOURCES:
         for fn, info in ptxas_summary(_build.ptxas_report(name)).items():
             say("ptxas", lib=name, kernel=fn, **info)
-            if (name.startswith("fno_block") and re.split(r"<", fn)[0] in FNO_BLOCK_STAGES
+            if (re.split(r"<", fn)[0] in NO_SPILL.get(name, ())
                     and (info.get("spill_stores") or info.get("spill_loads"))):
                 spilled.append(fn)
     if spilled:
-        raise AssertionError(f"ptxas spills registers in the FNO kernels' stages: {spilled}")
+        raise AssertionError(f"ptxas spills registers in K1, K4-K7 or K8: {spilled}")
 
     device = torch.device("cuda", 0)
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()

@@ -179,7 +179,15 @@ struct Jorek {
 
     template <class Src = FromGlobal>
     __device__ __forceinline__ float operator()(const float* __restrict__ f, const Geom& g,
-                                                int t, int x, int y, Src = Src()) const {
+                                                int t, int x, int y, Src src = Src()) const {
+        const float rr = __ldg(r + x + 1);
+        return eval(f, g, t, x, y, rr, 1.0f / rr, src);
+    }
+
+    // The residual with the row's R and 1/R given (`JorekRow`).
+    template <class Src>
+    __device__ __forceinline__ float eval(const float* __restrict__ f, const Geom& g, int t,
+                                          int x, int y, float rr, float inv_r, Src) const {
         const long long i0 = centre(g, t, x, y);
         auto F = [&](int var) { return d3<Src>(f + var * g.field, i0, g); };
         auto d_xx = [&](int var) {
@@ -190,8 +198,6 @@ struct Jorek {
             const float* a = f + var * g.field + i0;
             return Src::ld(a + 1) - 2.0f * Src::ld(a) + Src::ld(a - 1);
         };
-        const float rr = __ldg(r + x + 1);
-        const float inv_r = 1.0f / rr;
         if constexpr (EQ == kJorekContinuity) {
             const D3 rho = F(0), phi = F(1);
             const float br = rho.x * phi.y - phi.x * rho.y;
@@ -218,14 +224,46 @@ __device__ __forceinline__ Jorek<EQ> at_rows(const Jorek<EQ>& c, int x0) {
     return Jorek<EQ>{c.r + x0, c.dc, c.kc};
 }
 
+// JOREK's cell for the cells of one output row x, with that row's R and
+// 1/R read and divided once (K1, whose thread walks the batch in one row).
+// The same arithmetic as `Jorek`'s, so the same bits.
+template <int EQ>
+struct JorekRow {
+    Jorek<EQ> cell;
+    float rr, inv_r;
+
+    template <class Src = FromGlobal>
+    __device__ __forceinline__ float operator()(const float* __restrict__ f, const Geom& g,
+                                                int t, int x, int y, Src src = Src()) const {
+        return cell.eval(f, g, t, x, y, rr, inv_r, src);
+    }
+};
+
+// A cell bound to output row x: JOREK's as a `JorekRow`, any other as is.
+template <class Cell>
+__device__ __forceinline__ const Cell& at_row(const Cell& c, int) {
+    return c;
+}
+template <int EQ>
+__device__ __forceinline__ JorekRow<EQ> at_row(const Jorek<EQ>& c, int x) {
+    const float rr = __ldg(c.r + x + 1);
+    return JorekRow<EQ>{c, rr, 1.0f / rr};
+}
+
 // A constant stencil as a table of its non-zero taps, in the order of
 // `_taps` (itertools.product, zeros dropped): off[i] is the tap's linear
 // offset from the cell's (0, 0, 0) corner, w[i] its float32 weight. The
 // table is built on the host for the strides of the fields the cell reads.
+// This form reads the table from device memory and takes any count; each
+// tap's field load waits on its table loads.
 struct Taps {
     const int* __restrict__ off;
     const float* __restrict__ w;
     int n;
+
+    __device__ __forceinline__ int count() const { return n; }
+    __device__ __forceinline__ int tap_off(int i) const { return __ldg(off + i); }
+    __device__ __forceinline__ float tap_w(int i) const { return __ldg(w + i); }
 
     template <class Src = FromGlobal>
     __device__ __forceinline__ float operator()(const float* __restrict__ f, const Geom& g,
@@ -239,6 +277,36 @@ struct Taps {
         return acc;
     }
 };
+
+// The same table held by value (K1, K8): N taps, N known at compile time.
+// A kernel takes the cell as a __grid_constant__ parameter, so the table
+// lives in the constant bank, the tap loop unrolls, every offset and weight
+// is an operand of the instruction that uses it, and the N field loads are
+// independent of each other. The arithmetic is `Taps`'s, tap for tap.
+template <int N>
+struct TapsByValue {
+    int off[N];
+    float w[N];
+
+    static constexpr __device__ int count() { return N; }
+    __device__ __forceinline__ int tap_off(int i) const { return off[i]; }
+    __device__ __forceinline__ float tap_w(int i) const { return w[i]; }
+
+    template <class Src = FromGlobal>
+    __device__ __forceinline__ float operator()(const float* __restrict__ f, const Geom& g,
+                                                int t, int x, int y, Src = Src()) const {
+        const float* __restrict__ base = f + (long long)t * g.plane + (long long)x * g.ny + y;
+        float acc = __fmul_rn(Src::ld(base + off[0]), w[0]);
+#pragma unroll
+        for (int i = 1; i < N; ++i) acc = __fadd_rn(acc, __fmul_rn(Src::ld(base + off[i]), w[i]));
+        return acc;
+    }
+};
+
+// The tap count with a by-value instance: the wave composite's 7 taps at
+// k = 3, the one table the port's configurations run. Any other count runs
+// the same kernel bodies with `Taps`.
+constexpr int kByValueTaps = 7;
 
 // The variables (bit v for variable v) a cell of `kind` reads.
 inline unsigned cell_vars(int kind) {
@@ -257,17 +325,21 @@ inline unsigned cell_vars(int kind) {
 struct CellArgs {
     int kind;
     float cxy, cty, ctx, nu, dt;
-    const void* tap_off;
+    const void* tap_off;  // the tap table on the device (`Taps`)
     const void* tap_w;
     int ntaps;
     const void* rows;  // JOREK: the float32 table of the input grid's Nx major radii
     float dc, kc;      // JOREK: D and K
+    const int* host_off = nullptr;  // the tap table in host memory (`TapsByValue`)
+    const float* host_w = nullptr;
 };
 
 // Call launch(cell) with the cell that `a.kind` names. The JOREK cells are
 // instantiated only where kJorek is true (K1, K2, K3, the kernels the JAX
-// package has JOREK instances of); elsewhere their kinds are refused.
-template <bool kJorek = false, class Launch>
+// package has JOREK instances of), the device tap table only where kTable
+// is (all but K2, whose path runs no tap table); elsewhere their kinds are
+// refused.
+template <bool kJorek = false, bool kTable = true, class Launch>
 int with_cell(const CellArgs& a, const Launch& launch) {
     switch (a.kind) {
         case kNsMomentum: return launch(NsMomentum{a.cxy, a.cty, a.ctx, a.nu, a.dt});
@@ -277,7 +349,11 @@ int with_cell(const CellArgs& a, const Launch& launch) {
         case kInduction: return launch(Mhd<kInduction>{});
         case kGauss: return launch(Mhd<kGauss>{});
         case kTaps:
-            return launch(Taps{(const int*)a.tap_off, (const float*)a.tap_w, a.ntaps});
+            if constexpr (kTable) {
+                return launch(Taps{(const int*)a.tap_off, (const float*)a.tap_w, a.ntaps});
+            } else {
+                return (int)cudaErrorInvalidValue;
+            }
         case kJorekContinuity:
         case kJorekTemperature:
             if constexpr (kJorek) {
@@ -292,6 +368,30 @@ int with_cell(const CellArgs& a, const Launch& launch) {
             }
         default: return (int)cudaErrorInvalidValue;
     }
+}
+
+// Call launch(cell) with a tap table's cell: `TapsByValue` where the count
+// has its instance and the host copy was given, else `Taps` on the device
+// table (K1, K8).
+template <class Launch>
+int with_taps(const CellArgs& a, const Launch& launch) {
+    if (a.kind != kTaps || a.ntaps < 1) return (int)cudaErrorInvalidValue;
+    if (a.ntaps == kByValueTaps && a.host_off != nullptr && a.host_w != nullptr) {
+        TapsByValue<kByValueTaps> c;
+        for (int i = 0; i < kByValueTaps; ++i) {
+            c.off[i] = a.host_off[i];
+            c.w[i] = a.host_w[i];
+        }
+        return launch(c);
+    }
+    if (a.tap_off == nullptr || a.tap_w == nullptr) return (int)cudaErrorInvalidValue;
+    return launch(Taps{(const int*)a.tap_off, (const float*)a.tap_w, a.ntaps});
+}
+
+// `with_cell`, with a tap table as `with_taps` passes it.
+template <bool kJorek = false, class Launch>
+int with_cell_by_value(const CellArgs& a, const Launch& launch) {
+    return a.kind == kTaps ? with_taps(a, launch) : with_cell<kJorek, false>(a, launch);
 }
 
 }  // namespace

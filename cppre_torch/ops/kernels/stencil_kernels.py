@@ -15,13 +15,19 @@ is the plain version of every kernel it runs in.
   `mhd_induction_residual_fused`, `jorek_residual_fused`.
 * K8 `fused_stencil_residual`: field [BS, Nt, Nx, Ny] and a constant odd
   k^3 kernel -> [BS, Nt-k+1, Nx-k+1, Ny-k+1], optionally |.|; the plain
-  version is `stencil_shift_add(field, kernel, same=False)`.
-  `wave_residual_fused` names it for the wave experiment.
+  version is `stencil_shift_add(field, kernel, same=False)`. A block
+  marches the frames of one tile of one sample through a ring in shared
+  memory (`_march_geom`). `wave_residual_fused` names it for the wave
+  experiment.
 * K1 `_joint_cp_diff_stats`: truth and prediction read once; its instances
   return (diff [BS, *out], sum [*out], sumsq [*out]), diff = PRE(truth) - PRE(pred),
   optionally stored as bfloat16 (`diff_dtype`; the moments always come
   from the float32 diff). Instances `ns_joint_cp_diff_stats`,
   `wave_joint_cp_diff_stats`, `mhd_joint_cp_diff_stats`.
+* K1 and K8 take a tap table by value, in the kernel's parameters, where
+  its count has a compile-time instance (`_taps_by_value`), and read the
+  device copy of the same table otherwise; the other kernels always read
+  the device copy. Every form adds the taps in `_tap_table`'s order.
 * K3 `_joint_cp_diff_stats_chunked`: K1's outputs for 3-wide cells, each
   block's time chunk and spatial tile staged in shared memory and walked
   over the batch in sample order, so its bits are K1's. Instances
@@ -117,6 +123,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C types of a cell's arguments after its kind: the five NS constants,
 # the tap table (offsets, weights, count), JOREK's rows table, D and K
 _CELL_TYPES = (_F, _F, _F, _F, _F, _P, _P, _I, _P, _F, _F)
+# K1 and K8 also take the tap table's host copy, to pass it by value
+_BY_VALUE_TYPES = (_P, _P)
 MHD_EQUATIONS = ("continuity", "momentum", "energy", "induction", "gauss")
 JOREK_EQUATIONS = ("continuity", "temperature")
 GAMMA = 5.0 / 3.0
@@ -288,17 +296,38 @@ def _taps_cell(kernel):
                      kernel=kernel)
 
 
-@functools.lru_cache(maxsize=32)
-def _tap_table(kernel_bytes, k, dtype, nx, ny, device):
+@functools.lru_cache(maxsize=64)
+def _tap_table(kernel_bytes, k, dtype, nx, ny):
     """The non-zero taps of a [k, k, k] kernel in `_taps` order
     (itertools.product, zeros dropped): int32 linear offsets for an
-    [Nt, Nx, Ny] field and float32 weights, on `device`."""
+    [Nt, Nx, Ny] field (or a window of those strides) and float32 weights,
+    as read-only numpy arrays. K1 and K8 pass this host table by value where
+    its count has an instance (`_taps_by_value`); the other kernels, and
+    those two for any other count, read its device copy
+    (`_tap_table_device`)."""
     kernel = np.frombuffer(kernel_bytes, dtype=dtype).reshape(k, k, k)
     taps = [idx for idx in itertools.product(range(k), repeat=3) if kernel[idx] != 0.0]
-    off = [it * nx * ny + ix * ny + iy for it, ix, iy in taps]
-    w = [float(np.float32(kernel[idx])) for idx in taps]
-    return (torch.tensor(off, dtype=torch.int32, device=device),
-            torch.tensor(w, dtype=torch.float32, device=device))
+    off = np.array([it * nx * ny + ix * ny + iy for it, ix, iy in taps], np.int32)
+    w = np.array([kernel[idx] for idx in taps], np.float32)
+    off.setflags(write=False)
+    w.setflags(write=False)
+    return off, w
+
+
+@functools.lru_cache(maxsize=32)
+def _tap_table_device(kernel_bytes, k, dtype, nx, ny, device):
+    """`_tap_table` on `device`."""
+    off, w = _tap_table(kernel_bytes, k, dtype, nx, ny)
+    return (torch.tensor(off.tolist(), dtype=torch.int32, device=device),
+            torch.tensor(w.tolist(), dtype=torch.float32, device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def _taps_by_value(n: int) -> bool:
+    """Whether K1 and K8 take a table of n taps by value (a compile-time
+    instance of `TapsByValue<n>` in csrc/stencil_cells.cuh)."""
+    lib = _build.library("stencil_kernels")
+    return bool(_build.declare(lib, "cppre_taps_by_value", [_I])(n))
 
 
 @functools.lru_cache(maxsize=32)
@@ -307,20 +336,28 @@ def _rows_table(rows_bytes, device):
     return torch.tensor(np.frombuffer(rows_bytes, dtype=np.float32), device=device)
 
 
-def _cell_args(res: _Residual, shape, device):
+def _cell_args(res: _Residual, shape, device, by_value: bool = False):
     """The cell arguments of the C interface (`_CELL_TYPES` after the
-    kind): kind, the five NS constants, the tap table (pointers and count,
-    0 for the other cells), JOREK's rows table and (D, K), and the tables'
-    tensors, which the caller holds over the launch."""
-    tables, taps, rows = (), (None, None, 0), (None, 0.0, 0.0)
+    kind): kind, the five NS constants, the tap table (device pointers and
+    count, 0 for the other cells), JOREK's rows table and (D, K); with
+    `by_value` (K1, K8), then the host table's two pointers (`_BY_VALUE_TYPES`),
+    set where the kernel takes the table by value, when the device table is
+    not made. Also the tables, which the caller holds over the launch. The
+    tap table is built for the strides of shape[-2:]."""
+    tables, taps, rows, host = (), (None, None, 0), (None, 0.0, 0.0), (None, None)
     if res.kernel is not None:
         kern = np.ascontiguousarray(res.kernel)
-        off, w = _tap_table(kern.tobytes(), res.k, kern.dtype.str, shape[-2], shape[-1], device)
-        tables, taps = (off, w), (off.data_ptr(), w.data_ptr(), off.numel())
+        key = (kern.tobytes(), res.k, kern.dtype.str, shape[-2], shape[-1])
+        off, w = _tap_table(*key)
+        if by_value and _taps_by_value(off.size):
+            tables, taps, host = (off, w), (None, None, off.size), (off.ctypes.data, w.ctypes.data)
+        else:
+            d_off, d_w = _tap_table_device(*key, device)
+            tables, taps = (d_off, d_w), (d_off.data_ptr(), d_w.data_ptr(), off.size)
     if res.rows is not None:
         r = _rows_table(res.rows.tobytes(), device)
         tables, rows = tables + (r,), (r.data_ptr(), *res.jc)
-    return (res.kind, *res.coef, *taps, *rows), tables
+    return (res.kind, *res.coef, *taps, *rows) + (host if by_value else ()), tables
 
 
 def _check_fields(fields, res: _Residual, what):
@@ -337,9 +374,9 @@ def _out_shape(shape, k):
     return tuple(n - k + 1 for n in shape[2:])
 
 
-# ---- K2 and K8: the residual ----------------------------------------------------
+# ---- K2: the residual -----------------------------------------------------------
 
-def _launch_residual(fields, res: _Residual, take_abs: bool, what: str):
+def _launch_residual(fields, res: _Residual, what: str):
     _build.require(fields, what)
     bs, nvar, nt, nx, ny = fields.shape
     out = torch.empty((bs,) + _out_shape(fields.shape, res.k), device=fields.device,
@@ -347,10 +384,10 @@ def _launch_residual(fields, res: _Residual, take_abs: bool, what: str):
     cell, tables = _cell_args(res, fields.shape, fields.device)
     lib = _build.library("stencil_kernels")
     fn = _build.declare(lib, "cppre_stencil_residual",
-                        [_I, _P, _P, _I, _I, _I, _I, _I, _I, *_CELL_TYPES, _I, _P])
+                        [_I, _P, _P, _I, _I, _I, _I, _I, *_CELL_TYPES[:5], *_CELL_TYPES[8:], _P])
     with torch.cuda.device(fields.device):
-        rc = fn(cell[0], fields.data_ptr(), out.data_ptr(), bs, nvar, nt, nx, ny, res.k,
-                *cell[1:], int(take_abs), _build.stream_of(fields))
+        rc = fn(cell[0], fields.data_ptr(), out.data_ptr(), bs, nvar, nt, nx, ny, *cell[1:6],
+                *cell[9:], _build.stream_of(fields))
     _build.check(lib, rc, what)
     return out
 
@@ -360,7 +397,7 @@ def _batched_residual_fused(fields, res: _Residual, what: str = "residual"):
     _check_fields(fields, res, what)
     if not _build.on_cuda(fields):
         return res.math(fields)
-    out = _launch_residual(fields, res, False, what)
+    out = _launch_residual(fields, res, what)
     _batched_residual_fused.launches += 1
     return out
 
@@ -428,11 +465,45 @@ def fused_stencil_residual_plain(field, kernel, take_abs: bool = False):
     return res.abs() if take_abs else res
 
 
+# ---- K8: a constant stencil marching in time ---------------------------------
+
+def _march_geom(shape, k: int):
+    """(rows, rw, blocks) of K8 for a [BS, Nt, Nx, Ny] field and a k-wide
+    stencil on the current card: a slot of its ring holds rows x rw floats
+    of a frame, the strides its tap table is built for, and its grid has
+    `blocks` blocks (it depends on the card's SM count)."""
+    lib = _build.library("stencil_kernels")
+    fn = _build.declare(lib, "cppre_fused_stencil_residual_geom", [_I] * 5 + [_P])
+    geom = (ctypes.c_longlong * 3)()
+    _build.check(lib, fn(*shape, k, geom), "K8 geometry")
+    return tuple(int(v) for v in geom)
+
+
+def _launch_march(field, res: _Residual, take_abs: bool, what: str):
+    """Kernel K8 on a CUDA field [BS, Nt, Nx, Ny]; a k whose ring does not
+    fit a block's shared memory is refused."""
+    _build.require(field, what)
+    bs, nt, nx, ny = field.shape
+    out = torch.empty((bs,) + _out_shape(field[:, None].shape, res.k), device=field.device,
+                      dtype=torch.float32)
+    lib = _build.library("stencil_kernels")
+    fn = _build.declare(lib, "cppre_fused_stencil_residual",
+                        [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, *_BY_VALUE_TYPES, _I, _P])
+    with torch.cuda.device(field.device):
+        rows, rw, _ = _march_geom(field.shape, res.k)
+        cell, tables = _cell_args(res, (rows, rw), field.device, by_value=True)
+        rc = fn(field.data_ptr(), out.data_ptr(), bs, nt, nx, ny, res.k, *cell[6:9],
+                *cell[-2:], int(take_abs), _build.stream_of(field))
+    _build.check(lib, rc, what)
+    return out
+
+
 def fused_stencil_residual(field, kernel, take_abs: bool = False):
     """Kernel K8: a constant stencil on the valid interior, |D(field)| with
     `take_abs`. field [BS, Nt, Nx, Ny]; kernel a constant [k, k, k] (odd k)
     array. Returns [BS, Nt-k+1, Nx-k+1, Ny-k+1], the reference crop for
-    k = 3."""
+    k = 3. On the card a block marches the frames of one tile of one sample
+    through a ring in shared memory; a k whose ring does not fit raises."""
     res = _taps_cell(kernel)
     if field.ndim != 4:
         raise ValueError(f"fused_stencil_residual: expected [BS, Nt, Nx, Ny], "
@@ -440,7 +511,7 @@ def fused_stencil_residual(field, kernel, take_abs: bool = False):
     _check_fields(field[:, None], res, "fused_stencil_residual")
     if not _build.on_cuda(field):
         return fused_stencil_residual_plain(field, res.kernel, take_abs)
-    out = _launch_residual(field[:, None], res, take_abs, "fused_stencil_residual")
+    out = _launch_march(field, res, take_abs, "fused_stencil_residual")
     fused_stencil_residual.launches += 1
     return out
 
@@ -481,8 +552,10 @@ def _joint_cp_diff_stats(truth, prediction, res: _Residual, samples_per_block: i
     `diff_dtype=torch.bfloat16` stores the diff in bfloat16 (halving its
     write and the score pass's read); the moments still accumulate from
     the float32 diff. `samples_per_block` is accepted for signature parity
-    with `cppre`: every thread of the kernel walks the whole batch, so the
-    result does not depend on it. Counts the launches of every K1 instance."""
+    with `cppre`: every thread of the kernel walks the whole batch, a few
+    samples in flight, and folds them in sample order, so the result does
+    not depend on it. A tap table goes by value where its count has an
+    instance (`_taps_by_value`). Counts the launches of every K1 instance."""
     _check_pair(truth, prediction, res, what)
     if samples_per_block < 1:
         raise ValueError(f"samples_per_block must be >= 1, got {samples_per_block}")
@@ -498,10 +571,11 @@ def _joint_cp_diff_stats(truth, prediction, res: _Residual, samples_per_block: i
     diff = torch.empty((bs,) + out, device=truth.device, dtype=diff_dtype)
     s, sq = (torch.empty(out, device=truth.device, dtype=torch.float32) for _ in range(2))
     m2 = torch.empty(out, device=truth.device, dtype=torch.float32) if centred else None
-    cell, tables = _cell_args(res, truth.shape, truth.device)
+    cell, tables = _cell_args(res, truth.shape, truth.device, by_value=True)
     lib = _build.library("stencil_kernels")
     fn = _build.declare(lib, "cppre_joint_cp_diff_stats",
-                        [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_CELL_TYPES, _P])
+                        [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_CELL_TYPES,
+                         *_BY_VALUE_TYPES, _P])
     with torch.cuda.device(truth.device):
         rc = fn(cell[0], truth.data_ptr(), prediction.data_ptr(), diff.data_ptr(),
                 int(diff_dtype == torch.bfloat16), s.data_ptr(), sq.data_ptr(),
@@ -513,6 +587,19 @@ def _joint_cp_diff_stats(truth, prediction, res: _Residual, samples_per_block: i
 
 
 _joint_cp_diff_stats.launches = 0
+
+
+def _k1_grid(shape, res: _Residual, diff_dtype=None):
+    """(blocks, threads a block) of the K1 launch for [BS, Nvar, Nt, Nx, Ny]
+    inputs and cell `res`: 64 cells of a frame a block, and 1 to 4 threads
+    a cell, as many as keep every block resident at once on this card."""
+    n = 0 if res.kernel is None else int(np.count_nonzero(res.kernel))
+    lib = _build.library("stencil_kernels")
+    fn = _build.declare(lib, "cppre_joint_cp_diff_stats_grid", [_I] * 9 + [_P])
+    grid = (ctypes.c_longlong * 2)()
+    _build.check(lib, fn(res.kind, int(diff_dtype == torch.bfloat16), *shape[1:], res.k, n,
+                         int(n > 0 and _taps_by_value(n)), grid), "K1 grid")
+    return int(grid[0]), int(grid[1])
 
 
 def ns_joint_cp_diff_stats_plain(truth, prediction, dt: float, dx: float, dy: float,

@@ -559,3 +559,165 @@ def test_flat_scores_kernel(dev):
     pn = tn + 0.1 * _randn(tn.shape, 51, dev)
     _close(K.ns_joint_cp_scores_flat(tn, pn, *ARGS), K.ns_joint_cp_scores_flat_plain(tn, pn, *ARGS),
            1e-5)
+
+
+# ---- K1 and K8 with several samples in flight, taps by value ------------------
+
+# the wave experiment's composite kernel (7 taps, by value), and the same with
+# a D_xy cross term (9 taps: no by-value instance, the device table)
+def _wave_kernel(corner=False):
+    from cppre_torch.residuals import PRE_Wave
+
+    kern = np.asarray(PRE_Wave(0.01, 2 / 63, 1.0).D.kernel, np.float32)
+    if corner:
+        kern = kern.copy()
+        kern[1, 0, 0] = kern[1, 2, 2] = 0.125
+    return kern
+
+
+K1_CELLS = (["ns"] + [f"mhd-{e}" for e in K.MHD_EQUATIONS]
+            + [f"jorek-{e}" for e in K.JOREK_EQUATIONS] + ["taps7", "taps9"])
+
+
+def _k1_case(name, bs, dev, ny=41, nt=6):
+    """(truth, prediction, cell) for K1 at a small ragged shape."""
+    if name == "ns":
+        t, cell = _randn((bs, 3, nt, 11, ny), 60, dev), sk._ns_cell(*ARGS)
+    elif name.startswith("mhd"):
+        t, cell = _mhd((bs, 6, nt, 9, ny), 60, dev), sk._mhd_cell(name[4:])
+    elif name.startswith("jorek"):
+        t = _randn((bs, 3, nt, 11, ny), 60, dev)
+        cell = sk._jorek_cell(_jorek_r(11, affine=False), 3.4, 2.25e-7, name[6:])
+    else:
+        t, cell = _randn((bs, 1, nt, 10, ny), 60, dev), sk._taps_cell(_wave_kernel(name == "taps9"))
+    return t, t + 0.1 * _randn(t.shape, 61, dev), cell
+
+
+@pytest.mark.parametrize("bs", [1, 3, 5, 7, 9, 15, 16, 17])
+@pytest.mark.parametrize("name", K1_CELLS)
+def test_k1_walks_the_batch_in_groups(dev, name, bs):
+    """K1 for every cell at batch sizes around its groups of samples: U
+    samples a thread (1, 2 or 4) times up to 4 threads a cell (these small
+    grids take 4), so 1, U - 1, U + 1, group - 1, group + 1 and multiples.
+    diff, sum, sumsq and the centred m2 against the plain version (1e-5 of
+    max), equal bits on a rerun; the 7-tap table goes by value, the 9-tap
+    one does not."""
+    t, p, cell = _k1_case(name, bs, dev)
+    if cell.kernel is not None:
+        assert sk._taps_by_value(int(np.count_nonzero(cell.kernel))) == (name == "taps7")
+    before = K.launch_counts()["K1"]
+    got = sk._joint_cp_diff_stats(t, p, cell, centred=True)
+    assert K.launch_counts()["K1"] == before + 1
+    for g, r in zip(got, sk._diff_stats_plain(t, p, cell, centred=True)):
+        _close(g, r, 1e-5)
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, sk._joint_cp_diff_stats(t, p, cell, centred=True)))
+
+
+@pytest.mark.parametrize("edge", ["odd-oy", "ot-1"])
+@pytest.mark.parametrize("name", ["ns", "jorek-temperature", "taps7", "taps9"])
+def test_k1_bf16_diff_and_centred_pass(dev, name, edge):
+    """K1 with a bfloat16 diff and the centred pass, at an odd output row and
+    at one output frame: the diff within bfloat16's rounding of the plain
+    one, the moments and m2 (recomputed from the inputs) within 1e-5 of max
+    and equal to the float32 run's bits, equal bits on a rerun."""
+    t, p, cell = _k1_case(name, 6, dev, ny=37 if edge == "odd-oy" else 40,
+                          nt=3 if edge == "ot-1" else 6)
+    run = lambda dtype: sk._joint_cp_diff_stats(t, p, cell, diff_dtype=dtype, centred=True)
+    got = run(torch.bfloat16)
+    ref = sk._diff_stats_plain(t, p, cell, torch.bfloat16, centred=True)
+    assert got[0].dtype == torch.bfloat16 and got[0].shape[1:] == got[1].shape
+    assert (got[1].shape[0] == 1) == (edge == "ot-1") and got[1].shape[-1] % 2 == (edge == "odd-oy")
+    _close(got[0], ref[0], 1e-2)
+    for g, r in zip(got[1:], ref[1:]):
+        _close(g, r, 1e-5)
+    f32 = run(None)
+    assert all(torch.equal(a, b) for a, b in zip(got[1:], f32[1:]))
+    assert torch.equal(got[0], f32[0].to(torch.bfloat16))
+    assert all(torch.equal(a, b) for a, b in zip(got, run(torch.bfloat16)))
+
+
+def _seven_taps(k, seed):
+    """A k^3 kernel with 7 non-zero taps (the by-value count) at random places."""
+    rng = np.random.default_rng(seed)
+    kern = np.zeros(k ** 3, np.float32)
+    kern[rng.choice(k ** 3, 7, replace=False)] = rng.standard_normal(7)
+    return kern.reshape(k, k, k)
+
+
+# (kernel, field shape): by-value (7 taps) and device tables, k = 3, 5 and
+# 7, one sample, Nt = k, rows with and without 16-byte copies (Ny % 4),
+# outputs rows that are not a multiple of 4, several tiles, and a batch cut
+# into chunks. A kernel is "wave", "corner", ("seven", k, seed) or (k, seed)
+# for `_taps`.
+K8_CASES = {
+    "wave-k3": ("wave", (1, 3, 12, 68)),
+    "corner-k3": ("corner", (1, 3, 12, 71)),
+    "k5-7-taps": (("seven", 5, 21), (1, 5, 13, 68)),
+    "k5-68-taps": ((5, 7), (2, 6, 9, 71)),
+    "k7-7-taps": (("seven", 7, 22), (1, 7, 15, 69)),
+    "k7-206-taps": ((7, 21), (1, 7, 17, 70)),
+    "wave-tiles": ("wave", (3, 9, 21, 150)),
+}
+
+
+def _k8_kernel(which):
+    if isinstance(which, str):
+        return _wave_kernel(which == "corner")
+    return _seven_taps(*which[1:]) if which[0] == "seven" else _taps(*which)
+
+
+@pytest.mark.parametrize("take_abs", [False, True])
+@pytest.mark.parametrize("case", list(K8_CASES))
+def test_k8_marches_frames_through_its_ring(dev, case, take_abs):
+    """K8 against its plain version (1e-5 of max) and bit for bit on a
+    rerun. The 7-tap tables (the wave kernel, and 7 taps at k = 5 and 7) go
+    by value; 9, 68 and 206 taps have no instance and read the device table
+    in the same kernel body."""
+    which, shape = K8_CASES[case]
+    kern = _k8_kernel(which)
+    n = int(np.count_nonzero(kern))
+    assert sk._taps_by_value(n) == (n == 7)
+    f = _randn(shape, 62, dev)
+    before = K.launch_counts()["K8"]
+    got = K.fused_stencil_residual(f, kern, take_abs=take_abs)
+    assert K.launch_counts()["K8"] == before + 1
+    _close(got, K.fused_stencil_residual_plain(f, kern, take_abs=take_abs), 1e-5)
+    assert torch.equal(got, K.fused_stencil_residual(f, kern, take_abs=take_abs))
+
+
+@pytest.mark.parametrize("k", [3, 5, 7])
+def test_k8_slot_holds_a_tile_and_its_halo(dev, k):
+    """K8's ring slot covers a 16 x 64 output tile and its k - 1 halo, in
+    rows a multiple of 4 floats long (16-byte copies)."""
+    rows, rw, _ = sk._march_geom((1, 20, 64, 64), k)
+    assert rows == 16 + k - 1
+    assert 64 + k - 1 <= rw < 64 + k + 3 and rw % 4 == 0
+
+
+def test_k8_refuses_a_ring_larger_than_shared_memory(dev):
+    """A 23-wide stencil's ring of 26 slots of 38 x 88 floats is more than a
+    block's 227 KB of shared memory: the launcher refuses it."""
+    k = 23
+    kern = np.zeros((k, k, k), np.float32)
+    kern[k // 2, k // 2, k // 2] = 1.0
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        K.fused_stencil_residual(_randn((1, k, k, k), 63, dev), kern)
+
+
+def test_k1_and_k8_grids(dev):
+    """K1: 64 cells of one output frame a block, 1 to 4 threads a cell, more
+    where the cells are few (JOREK) than where they fill the card (NS); K8:
+    tiles of each sample, its frames cut into chunks only where the batch
+    gives fewer than 4 blocks an SM."""
+    wave, ns = sk._taps_cell(_wave_kernel()), sk._ns_cell(*ARGS)
+    jorek = sk._jorek_cell(_jorek_r(32), 3.4, 2.25e-7, "continuity")
+    assert sk._k1_grid((1000, 1, 20, 64, 64), wave)[0] == 18 * 61
+    blocks, threads = sk._k1_grid((100, 3, 40, 32, 32), jorek)
+    assert blocks == 38 * 15 and threads in (128, 192, 256)
+    assert sk._k1_grid((100, 3, 21, 100, 100), ns) == (19 * 151, 64)
+    rows = 16   # output rows of a K8 tile
+    assert sk._march_geom((1000, 20, 64, 64), 3)[2] == 1000 * -(-62 // rows)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    one = sk._march_geom((1, 20, 64, 64), 3)[2]
+    assert 4 * sms <= one or one == -(-62 // rows) * 18
