@@ -32,10 +32,12 @@ timed. Phases, one line each:
   build      compile the kernels from `cppre_torch/csrc` (nvcc, in parallel);
              then one `ptxas` line per kernel function: registers and spills;
              a spill in any instance of the FNO kernels' stages (K4-K7:
-             `FNO_BLOCK_STAGES`) or of K1's and K8's bodies fails the run
+             `FNO_BLOCK_STAGES`) or of K1's, K2's, K8's and K9's bodies
+             fails the run
   device     the card, and its name and power limit from nvidia-smi
   kernels    every kernel against its plain version at the main paths'
-             shapes (K1, K2, K4, K5 at the NS serving shapes, K6, K7 at the
+             shapes (K1, K2, K4, K5 at the NS serving shapes, and K9 at K1's
+             NS shape, K6, K7 at the
              NS training shapes; K8, K1 wave, K4-K7 at the wave shapes; K2
              (5 equations), K1 and K9 MHD, K4-K7 at the MHD shapes; K2
              (both equations, and a non-affine R against PRE_JOREK), K1, K3
@@ -43,8 +45,12 @@ timed. Phases, one line each:
              / relative error, median times (CUDA events), the bound from
              bytes and operations, and for K8 the time of the one PyTorch
              call (conv3d) that computes the same function; K1 also in the
-             centred form the score routes launch (its time and bound), and
-             K1's and K8's block counts
+             centred form the score routes launch (its time and bound), K9
+             beside the two-pass route it replaces, K2's and K9's device ms
+             (torch.profiler; the events around one call also hold the
+             host's launch time), and the grids of K1, K2 (blocks, threads,
+             shared bytes, tile, frames a block), K8 and K9 (route, stash
+             cells, blocks, threads, shared bytes, lanes)
   serve      NS: CalibratedSurrogate(fused=True, score='aer+pre',
              mode='joint'): calibrate on 100 samples, predict 100
   calibrate  the same calibration scores through K1 (ns_joint_cp_scores_fused)
@@ -242,6 +248,33 @@ def cuda_ms(fn, reps=REPS):
     return statistics.median(times)
 
 
+def device_ms(fn, reps=20):
+    """Device milliseconds of one call of `fn`: the kernels and memory
+    operations of `reps` calls under torch.profiler (`device_activity`),
+    over reps; None where the profiler cannot tell them apart. `cuda_ms`'s
+    events around one call also hold the host's time to launch it, tens of
+    microseconds, most of the time of a kernel as short as JOREK's K2."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.events():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        activity = device_activity(e)
+        if activity is None:
+            return None
+        if activity:
+            total += e.time_range.elapsed_us() / 1e3
+    return total / reps
+
+
 def compare(name, got, ref, rel_tol):
     """max |got - ref| and its ratio to max |ref|; raises above rel_tol."""
     import torch
@@ -295,7 +328,7 @@ def _kernel_name(mangled):
         """(<a,b>, rest) of a template argument list at s ('I...E')."""
         s, out = s[1:], []
         while s and not s.startswith("E"):
-            if (m := re.match(r"Li(-?\d+)E", s)):
+            if (m := re.match(r"L[bcijlmstxy](-?\d+)E", s)):
                 out.append(m.group(1))
                 s = s[m.end():]
             elif s[0] == "N" or s[0].isdigit():
@@ -316,15 +349,17 @@ def _kernel_name(mangled):
 
 
 # The kernel functions of K4-K7 (csrc/fno_block.cu, fno_block_bwd.cu and
-# their headers), and of K1 and K8 (csrc/stencil_kernels.cu): built to keep
-# every instance's working set in registers, so a spill in any of them is a
-# fault of the build.
+# their headers), and of K1, K2, K8 and K9 (csrc/stencil_kernels.cu): built
+# to keep every instance's working set in registers, so a spill in any of
+# them is a fault of the build.
 FNO_BLOCK_STAGES = ("dft_fwd_kernel", "spectral_mix_kernel", "inverse_x_kernel",
                     "block_out_tile_kernel", "block_bwd_tile_kernel", "idft_dx_tile_kernel",
                     "spectral_adjoint_kernel", "reduce_rows_kernel", "projection_tile_kernel",
                     "projection_bwd_tile_kernel")
 NO_SPILL = {"fno_block": FNO_BLOCK_STAGES, "fno_block_bwd": FNO_BLOCK_STAGES,
-            "stencil_kernels": ("diff_stats_kernel", "stencil_march_kernel")}
+            "stencil_kernels": ("diff_stats_kernel", "stencil_march_kernel",
+                                "residual_window_kernel", "scores_stash_kernel",
+                                "scores_single_pass_kernel")}
 
 
 def ptxas_summary(report):
@@ -407,6 +442,48 @@ def k1_centred(r, truth, pred, cell, n_bytes, flops):
     return dict(centred_ms=f"{r['centred_ms']:.4f}",
                 centred_bound_ms=f"{r['centred_bound'][0]:.4f}", blocks=r["grid"][0],
                 threads_a_block=r["grid"][1])
+
+
+def k2_grid(fields, cell):
+    """K2's launch for `fields` and `cell`, and its device ms, as its
+    [kernels] line reports them."""
+    from cppre_torch.ops.kernels import stencil_kernels as sk
+
+    g = sk._residual_geom(tuple(fields.shape), cell)
+    dev = device_ms(lambda: sk._batched_residual_fused(fields, cell))
+    return dict(device_ms="not measured" if dev is None else f"{dev:.4f}", blocks=g["blocks"],
+                threads_a_block=g["threads"], smem_bytes=g["smem"],
+                tile=f"{g['tile'][0]}x{g['tile'][1]}", frames_a_block=g["frames"])
+
+
+def k9_line(results, family, truth, pred, cell, scores, res_flops, in_bytes):
+    """K9 (`scores`: its entry, called with single_pass) against its plain
+    version (1e-5 of max) and against the two-pass route, K1 centred and
+    the score epilogue (1e-6 of max), bit-stable on a rerun; its time beside
+    the two-pass route's, its bound (the inputs its cell reads once, the
+    scores written; per sample and cell the two residuals, their
+    difference, and 8 flops of the moments and the score), and its grid."""
+    from cppre_torch.ops.kernels import stencil_kernels as sk
+
+    one, two = scores(truth, pred, True), scores(truth, pred, False)
+    plain = sk._scores_plain(truth, pred, cell, EPS, None, f"K9 {family}")
+    err, rel = compare(f"K9 {family} vs plain", one, plain, 1e-5)
+    _, rel_two = compare(f"K9 {family} vs K1 two-pass", one, two, 1e-6)
+    same_bits(f"K9 {family}", one, scores(truth, pred, True))
+    cells = one.numel() * int(np.prod([n - cell.k + 1 for n in truth.shape[2:]]))
+    r = results[("K9", family)] = dict(
+        max_abs_err=err, rel_err=rel,
+        bound=bound(in_bytes + nbytes(one), (2 * res_flops + 1 + 8) * cells),
+        ms=cuda_ms(lambda: scores(truth, pred, True)),
+        plain_ms=cuda_ms(lambda: sk._scores_plain(truth, pred, cell, EPS, None, "K9")),
+        two_pass_ms=cuda_ms(lambda: scores(truth, pred, False)))
+    g = sk._k9_grid(tuple(truth.shape), cell)
+    dev = device_ms(lambda: scores(truth, pred, True))
+    report(results, "K9", family, vs_two_pass_rel=f"{rel_two:.3e}", bitwise_rerun=True,
+           two_pass_ms=f"{r['two_pass_ms']:.4f}",
+           device_ms="not measured" if dev is None else f"{dev:.4f}", cells=cells, route=g["route"],
+           stash_cells=g["cells"], blocks=g["blocks"], threads_a_block=g["threads"],
+           smem_bytes=g["smem"], lanes=g["lanes"])
 
 
 def fno_kernels(results, family, device, width, modes, nvar, nx, ny, b_fwd, b_bwd, seed,
@@ -507,7 +584,8 @@ def phase_kernels(model, device):
     out[("K2", "ns")] = dict(max_abs_err=err, rel_err=rel,
                              bound=bound(nbytes(f20, ref), NS_RES_FLOPS * cells),
                              ms=cuda_ms(lambda: K.ns_momentum_residual_fused(f20, *args)),
-                             plain_ms=cuda_ms(lambda: K.ns_momentum_residual_plain(f20, *args)))
+                             plain_ms=cuda_ms(lambda: K.ns_momentum_residual_plain(f20, *args)),
+                             grid=k2_grid(f20, sk._ns_cell(*args)))
     del f20, got, ref
 
     # K1 on the bench layout [100, 3, 21, 100, 100]
@@ -534,11 +612,16 @@ def phase_kernels(model, device):
         ms=cuda_ms(lambda: K.ns_joint_cp_diff_stats(truth, pred, *args)),
         plain_ms=cuda_ms(lambda: K.ns_joint_cp_diff_stats_plain(truth, pred, *args)))
     centred = k1_centred(out[("K1", "ns")], truth, pred, sk._ns_cell(*args), k1_bytes, k1_flops)
-    del truth, pred, d, s, q, d0, s0, q0
+    del d, s, q, d0, s0, q0
+    # K9 at the same shape, the NS entry's single pass
+    k9_line(out, "ns", truth, pred, sk._ns_cell(*args),
+            lambda a, b, sp: K.ns_joint_cp_scores_fused(a, b, *args, eps=EPS, single_pass=sp),
+            NS_RES_FLOPS, nbytes(truth, pred))
+    del truth, pred
     report(out, "K1", "ns", **centred, qhat=f"{float(qh):.6e}", qhat_bf16=f"{float(qb):.6e}",
            qhat_bf16_vs_plain_bf16=f"{rel_bf:.3e}",
            qhat_bf16_vs_f32=f"{abs(float(qb) - float(qh)) / abs(float(qh)):.3e}")
-    report(out, "K2", "ns")
+    report(out, "K2", "ns", **out[("K2", "ns")]["grid"])
     fno_kernels(out, "ns", device, WIDTH, MODES, NVAR, NX, NY, N_CAL, TRAIN_BATCH, SEED + 2)
     torch.cuda.empty_cache()
     return out
@@ -632,7 +715,7 @@ def phase_kernels_mhd(results, device):
             bound=bound(MHD_FIELDS[eq] * field_bytes + nbytes(ref), MHD_RES_FLOPS[eq] * ref.numel()),
             ms=cuda_ms(lambda: K.mhd_residual_fused(truth, eq)),
             plain_ms=cuda_ms(lambda: K.mhd_residual_plain(truth, eq)))
-        report(results, "K2", fam)
+        report(results, "K2", fam, **k2_grid(truth, sk._mhd_cell(eq)))
         del got, ref
     # the path's equation carries the worst error of the five
     results[("K2", "mhd")] = dict(results[("K2", "mhd-induction")])
@@ -659,25 +742,10 @@ def phase_kernels_mhd(results, device):
     del d, s, q, d0, s0, q0
 
     # K9 against K1 + the score epilogue and against its plain version
-    one = K.mhd_induction_joint_cp_scores_fused(truth, pred, eps=EPS, single_pass=True)
-    two = K.mhd_induction_joint_cp_scores_fused(truth, pred, eps=EPS)
-    plain = K.mhd_induction_joint_cp_scores_plain(truth, pred, eps=EPS)
-    err, rel = compare("K9 vs plain", one, plain, 1e-5)
-    _, rel_two = compare("K9 vs K1 two-pass", one, two, 1e-6)
-    same_bits("K9", one, K.mhd_induction_joint_cp_scores_fused(truth, pred, eps=EPS,
-                                                               single_pass=True))
-    cells = one.numel() * int(np.prod([n - 2 for n in MHD["res_shape"][2:]]))
-    results[("K9", "mhd")] = dict(
-        max_abs_err=err, rel_err=rel, bound=bound(in_bytes + nbytes(one),
-                                                  (2 * (2 * ind + 1) + 8) * cells),
-        ms=cuda_ms(lambda: K.mhd_induction_joint_cp_scores_fused(truth, pred, eps=EPS,
-                                                                 single_pass=True)),
-        plain_ms=cuda_ms(lambda: K.mhd_induction_joint_cp_scores_plain(truth, pred, eps=EPS)),
-        two_pass_ms=cuda_ms(lambda: K.mhd_induction_joint_cp_scores_fused(truth, pred,
-                                                                          eps=EPS)))
-    report(results, "K9", "mhd", vs_two_pass_rel=f"{rel_two:.3e}", bitwise_rerun=True,
-           two_pass_ms=f"{results[('K9', 'mhd')]['two_pass_ms']:.4f}", cells=cells)
-    del truth, pred, one, two, plain
+    k9_line(results, "mhd", truth, pred, sk._mhd_cell("induction"),
+            lambda a, b, sp: K.mhd_induction_joint_cp_scores_fused(a, b, eps=EPS, single_pass=sp),
+            ind, in_bytes)
+    del truth, pred
     torch.cuda.empty_cache()
     fno_kernels(results, "mhd", device, MHD["width"], MHD["modes"], MHD["nvar"], MHD["nx"],
                 MHD["ny"], MHD["rollout"], MHD["batch"], SEED + 21)
@@ -718,7 +786,8 @@ def phase_kernels_jorek(results, device):
                         JOREK_RES_FLOPS[eq] * ref.numel()),
             ms=cuda_ms(lambda: K.jorek_residual_fused(truth, R, equation=eq, **coef)),
             plain_ms=cuda_ms(lambda: K.jorek_residual_plain(truth, R, equation=eq, **coef)))
-        report(results, "K2", fam, equation=eq, bitwise_rerun=True)
+        report(results, "K2", fam, equation=eq, bitwise_rerun=True,
+               **k2_grid(truth, sk._jorek_cell(R, c["D"], c["K"], eq)))
         del got, ref
     # a non-affine grid runs the kernel too, against the PRE_JOREK class
     rn = jorek_r(JOREK["nx"], affine=False)
@@ -1428,7 +1497,7 @@ def main():
                     and (info.get("spill_stores") or info.get("spill_loads"))):
                 spilled.append(fn)
     if spilled:
-        raise AssertionError(f"ptxas spills registers in K1, K4-K7 or K8: {spilled}")
+        raise AssertionError(f"ptxas spills registers in K1, K2 or K4-K9: {spilled}")
 
     device = torch.device("cuda", 0)
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -1558,7 +1627,9 @@ def main():
              ("K10", "flat-mhd"): "mhd_joint_cp_scores_flat",
              "K11": "_flat_residual_kernel", "K12": "_flat_absdiff_stats_from_res"}
     for (kid, family), r in results.items():
-        if family not in windows:       # variants timed beside a path's instance
+        # variants timed beside a path's instance, and kernels timed at a
+        # path's shapes that its run does not launch (K9 at NS)
+        if family not in windows or windows[family][kid] == 0:
             continue
         src, rep = KERNEL_INFO[kid]
         name = names.get((kid, family)) or names[kid]

@@ -11,7 +11,7 @@
 //
 // A cell reads its fields through a source policy, the optional last
 // argument: FromGlobal (the default) through the read-only data cache, or
-// FromShared, a plain load, for a window that K3 staged in shared memory.
+// FromShared, a plain load, for a window that K2 or K3 staged in shared memory.
 // The policy changes how a value is fetched, never the arithmetic.
 //
 // Term order follows the JAX math (cppre/ops/pallas/stencil_kernels.py
@@ -309,7 +309,7 @@ struct TapsByValue {
 constexpr int kByValueTaps = 7;
 
 // The variables (bit v for variable v) a cell of `kind` reads.
-inline unsigned cell_vars(int kind) {
+__host__ __device__ constexpr unsigned cell_vars(int kind) {
     switch (kind) {
         case kNsMomentum: return 0x7u;                // u, v, p
         case kContinuity: return 0x7u;                // rho, u, v

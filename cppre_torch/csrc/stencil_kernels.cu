@@ -2,7 +2,7 @@
 // constant tap table's residual marching through shared memory (K8), the
 // paired joint-CP diff plus cross-batch moments (K1) and its time-chunked,
 // shared-memory-staged twin (K3), and the joint-CP scores in one launch
-// with no staged diff (K9). Every kernel body is a template over a *cell*
+// with no diff in HBM (K9). Every kernel body is a template over a *cell*
 // (stencil_cells.cuh): the function that evaluates one residual at one
 // output cell of one sample. K1, K2, K3 and K9 call the very same cell, so
 // the diff K9 scores is the diff K1 stores, and K3's diff, sum and sum of
@@ -29,10 +29,10 @@
 // What bounds them on an H100: memory. A cell reads at most 25 field taps
 // (six MHD fields) and does well under 100 flops, far below the ~20
 // flops/byte at which the card stops being bandwidth-bound. The TPU kernels
-// held one whole trajectory in VMEM; here K1, K2 and K9 let neighbouring
+// held one whole trajectory in VMEM; here K1 and K9 let neighbouring
 // threads read neighbouring y addresses (coalesced) and leave a tap's reuse
-// by adjacent cells to L1/L2, and K8 copies each input frame of a tile into
-// shared memory once and reads its taps there.
+// by adjacent cells to L1/L2, and K2 and K8 copy each input frame of a tile
+// into shared memory once and read its taps there.
 //
 // Cross-batch moments (K1, K3, K9): the TPU kernel carries sum/sumsq from
 // one grid step to the next, relying on the TPU running its grid in order.
@@ -66,16 +66,19 @@
 // `_chunk_t_block`), as the TPU's is cut to fit VMEM.
 //
 // K9: the TPU kernel stashes every diff in VMEM between its two phases. At
-// the MHD configuration's 128^2 grid that stash is ~114 MB, against 228 KB
-// of shared memory per SM and 50 MB of L2, so here nothing is stashed:
-// since a thread already holds every batch moment of its cell, pass 1 over
-// the batch forms the mean, pass 2 the centred sum of squares and the
-// modulation, pass 3 recomputes each diff with the same cell and folds
-// |diff| / mod into a per-sample maximum (warp shuffle, then the block,
-// then atomicMax on the bits of the non-negative float: a maximum is exact
-// and order-free, so the scores are bit-stable). K9 reads the inputs three
-// times and writes no diff; its arithmetic is K1's plus the epilogue's,
-// operation for operation, so its scores are the two-pass route's.
+// the MHD configuration's 128^2 grid the whole stash is ~114 MB, against
+// 228 KB of shared memory per SM and 50 MB of L2; but a block of K1's shape
+// (64 cells of one frame, walking the batch) needs only its own cells'
+// diffs, 64 x BS floats (25.6 KB at BS = 100). So each K9 block walks the
+// batch once as K1 does, keeps its diffs in shared memory, forms the sum
+// and the centred sum of squares from there in K1's order, and takes the
+// per-sample maximum of |diff| / mod over its cells from there; the grid's
+// maximum is an atomicMax on the bits of the non-negative float, exact and
+// order-free, so the scores are bit-stable. The inputs are read once and no
+// diff is written. For a batch whose stash does not fit (BS above ~1 800)
+// K9 keeps a recompute body that reads the inputs three times. Either way
+// its arithmetic is K1's plus the epilogue's, operation for operation, so
+// its scores are the two-pass route's.
 
 #include <cuda_bf16.h>
 #include <algorithm>
@@ -87,18 +90,240 @@
 
 namespace {
 
-// ---- K2: the residual ---------------------------------------------------------
-// grid (BS * ot, ceil(ox / blockDim.y)); threads along y.
+constexpr size_t kMaxSmem = 232448;   // 227 KB, a block's most on sm_90
+
+// The card's SM count in *n, which sizes the grids of K1, K2, K8 and K9.
+cudaError_t sm_count(int* n) {
+    static int cached = 0;
+    if (cached == 0) {
+        int dev = 0, v = 0;
+        cudaError_t e = cudaGetDevice(&dev);
+        if (e == cudaSuccess) e = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+        if (e != cudaSuccess) return e;
+        cached = v;
+    }
+    *n = cached;
+    return cudaSuccess;
+}
+
+// ---- K2: the residual, each tile's frames staged in shared memory once -----
+// A block owns an output tile of one sample, S.tx rows of up to S.ty
+// columns, and a run of tc output frames (`residual_geom`). It stages the
+// window that run reads, tc + 2 input frames of the tile and its halo, of
+// each variable from the first to the last one the cell reads, in shared
+// memory: each frame a slot of S.rows x S.rw floats (rw a multiple of 4,
+// so a row's 16-byte copies stay aligned), copied once with cp.async,
+// kResAhead frames ahead of the one computed. The window's frames lie one
+// after another and do not wrap, so a cell finds its time neighbours at
+// +-plane from its centre as it does in the fields, and each cell runs as
+// it is on the window (`FromShared`): the same arithmetic, so the same
+// bits, as the cell that reads the fields from HBM. The window's strides
+// are compile-time constants (`res_shape`, `ResWindow`), so every tap of a
+// cell is an immediate offset from one shared-memory address. A run of
+// frames re-reads the two frames before it (from L2, as its neighbour
+// run's block runs beside it); a ring of slots would save that only by
+// copying the two frames its wrap needs twice, for the same shared memory.
+// Each thread owns one column of the tile and up to S.rows_a_thread of its
+// rows, g rows of threads apart.
+//
+// The tile follows the plane and the cell: an output row wider than 32
+// takes tiles of up to 64 columns, a narrower one of 32, and the tile's
+// width splits the row into near-equal parts (NS 98 -> 2 x 52, MHD 126 ->
+// 2 x 64, JOREK 30 -> 32). A tile has 16 rows of up to 64 columns or 32 of
+// up to 32, 4 rows a thread, or half as many rows where the cell reads
+// more than 3 variables (MHD induction, momentum, energy), so that a
+// window still holds a few frames. A window holds as many frames as fit
+// `res_smem_budget`; the frames are cut into more runs where bs x tiles
+// gives fewer than 4 blocks an SM.
+constexpr int kResThreads = 256;
+constexpr int kResAhead = 5;
+// Shared memory a block's windows may take: a third of the SM's 228 KB, less
+// the 1 KB a block reserves, for a cell of at most 3 variables, so that 3
+// blocks an SM hide each other's copies; half for a cell of more (MHD
+// induction, momentum, energy), whose windows would hold too few frames.
+__host__ __device__ constexpr size_t res_smem_budget(int windows) {
+    return windows <= 3 ? 233472 / 3 - 1024 : 233472 / 2 - 1024;
+}
+
+__host__ __device__ constexpr int lowest_var(unsigned vars) {
+    int v = 0;
+    while (!((vars >> v) & 1u)) ++v;
+    return v;
+}
+__host__ __device__ constexpr int res_windows(unsigned vars) {
+    int hi = 31;
+    while (!((vars >> hi) & 1u)) --hi;
+    return hi - lowest_var(vars) + 1;
+}
+
+// A window's frame for a cell reading `vars`, narrow or wide: rows x rw
+// floats of a tile of tx rows and up to ty columns, each thread taking up
+// to rows_a_thread of them; and the frames a window holds.
+struct ResShape {
+    int ty, tx, rows_a_thread, rw, rows, slot, frames;
+};
+__host__ __device__ constexpr ResShape res_shape(bool narrow, unsigned vars) {
+    const int ty = narrow ? 32 : 64;
+    const int per_thread = res_windows(vars) <= 3 ? 4 : 2;
+    const int tx = kResThreads / ty * per_thread;
+    const int slot = (tx + 2) * (ty + 4);
+    const int frames =
+        (int)(res_smem_budget(res_windows(vars)) / (sizeof(float) * res_windows(vars) * slot));
+    return ResShape{ty, tx, per_thread, ty + 4, tx + 2, slot, frames};
+}
+
+// The kind of a cell type (K2's cells).
 template <class Cell>
-__global__ void residual_kernel(const float* __restrict__ fields, float* __restrict__ out,
-                                Geom g, Cell cell) {
-    const int bt = blockIdx.x;
-    const int x = blockIdx.y * blockDim.y + threadIdx.y;
-    if (x >= g.ox) return;
-    const int b = bt / g.ot, t = bt % g.ot;
-    const float* f = fields + (long long)b * g.sample;
-    float* o = out + ((long long)bt * g.ox + x) * g.oy;
-    for (int y = threadIdx.x; y < g.oy; y += blockDim.x) o[y] = cell(f, g, t, x, y);
+struct KindOf;
+template <>
+struct KindOf<NsMomentum> {
+    static constexpr int value = kNsMomentum;
+};
+template <int EQ>
+struct KindOf<Mhd<EQ>> {
+    static constexpr int value = EQ;
+};
+template <int EQ>
+struct KindOf<Jorek<EQ>> {
+    static constexpr int value = EQ;
+};
+
+// The windows of a cell, narrow or wide, at compile time: variables vlo ..
+// vlo + nwin - 1, each res_shape(...).frames frames, variable v's at
+// (v - vlo) * field floats; so every stride a cell reads in them is a
+// constant.
+template <class Cell, bool Narrow>
+struct ResWindow {
+    static constexpr unsigned vars = cell_vars(KindOf<Cell>::value);
+    static constexpr int vlo = lowest_var(vars);
+    static constexpr int nwin = res_windows(vars);
+    static constexpr int field = res_shape(Narrow, vars).frames * res_shape(Narrow, vars).slot;
+    static_assert(res_shape(Narrow, vars).frames >= 3,
+                  "a window holds at least one output frame's three");
+};
+
+struct ResidualGeom {
+    int narrow;                // tiles of up to 32 columns, else 64 (`res_shape`)
+    int tx, ty, g;             // output tile; g rows of ty threads
+    int tiles_x, tiles_y;      // tiles of the output plane
+    int tc, chunks;            // output frames a block runs, runs of ot
+    int nwin;                  // variables with a window
+    long long blocks;
+    size_t smem;
+};
+
+// K2's geometry for bs samples of g whose cell reads the variables of the
+// bit mask `vars`, on a card of `sms` SMs (blocks = 0: none fits).
+ResidualGeom residual_geom(int bs, const Geom& g, unsigned vars, int sms) {
+    ResidualGeom m{};
+    if (vars == 0u || bs < 1 || g.ot < 1 || g.ox < 1 || g.oy < 1) return m;
+    m.narrow = g.oy <= res_shape(true, vars).ty;
+    const ResShape S = res_shape(m.narrow, vars);
+    m.tx = S.tx;
+    m.tiles_y = (g.oy + S.ty - 1) / S.ty;
+    m.ty = ((g.oy + m.tiles_y - 1) / m.tiles_y + 3) / 4 * 4;
+    m.g = kResThreads / m.ty;
+    m.tiles_x = (g.ox + m.tx - 1) / m.tx;
+    m.nwin = res_windows(vars);
+    const long long per_chunk = (long long)bs * m.tiles_x * m.tiles_y;
+    const long long tc_max = std::min<long long>(S.frames - 2, g.ot);
+    const long long want = 4LL * sms;
+    long long chunks = std::max((g.ot + tc_max - 1) / tc_max,
+                                std::min<long long>(g.ot, (want + per_chunk - 1) / per_chunk));
+    m.tc = (int)((g.ot + chunks - 1) / chunks);
+    m.chunks = (g.ot + m.tc - 1) / m.tc;
+    m.blocks = per_chunk * m.chunks;
+    m.smem = sizeof(float) * m.nwin * (size_t)S.frames * S.slot;
+    return m;
+}
+
+// 1-D grid of m.blocks: block i is tile i % tiles, then run, then sample;
+// m.g * m.ty threads. vec: 16-byte copies (ny % 4 == 0, an aligned field).
+template <class Cell, bool Narrow>
+__global__ void __launch_bounds__(kResThreads, 2)
+residual_window_kernel(const float* __restrict__ fields, float* __restrict__ out, Geom g,
+                       ResidualGeom m, int vec, const __grid_constant__ Cell cell) {
+    using W = ResWindow<Cell, Narrow>;
+    constexpr ResShape S = res_shape(Narrow, W::vars);
+    extern __shared__ __align__(16) float win[];
+    const int tiles = m.tiles_x * m.tiles_y;
+    const int tile = (int)(blockIdx.x % tiles);
+    const int rest = (int)(blockIdx.x / tiles);
+    const int chunk = rest % m.chunks, b = rest / m.chunks;
+    const int x0 = (tile / m.tiles_y) * S.tx, y0 = (tile % m.tiles_y) * m.ty;
+    const int t0 = chunk * m.tc;
+    const int nt_out = min(m.tc, g.ot - t0), nf = nt_out + 2;
+    const float* __restrict__ src = fields + (long long)b * g.sample + (long long)t0 * g.plane
+                                    + (long long)x0 * g.ny + y0;
+    // the part of the window inside the grid; the rest of a slot stays unset
+    // and feeds only outputs past the grid's edge, which are not computed
+    const int wrows = min(S.rows, g.nx - x0), wcols = min(m.ty + 2, g.ny - y0);
+    // copies: a thread takes one 16-byte (or 4-byte) column of every
+    // `step`-th row of each variable's frame
+    const int ncol = vec ? (wcols + 3) / 4 : wcols;
+    const int crow = threadIdx.x / ncol, ccol = threadIdx.x - crow * ncol;
+    const int step = blockDim.x / ncol;
+    const bool copier = crow < step;
+
+    auto load_frame = [&](int f) {
+        if (!copier) return;
+#pragma unroll
+        for (int v = W::vlo; v < W::vlo + W::nwin; ++v) {
+            if (!((W::vars >> v) & 1u)) continue;
+            float* dst = win + (v - W::vlo) * W::field + f * S.slot;
+            const float* s = src + v * g.field + (long long)f * g.plane;
+            for (int r = crow; r < wrows; r += step) {
+                if (vec) {
+                    copy_async16(dst + r * S.rw + 4 * ccol, s + (long long)r * g.ny + 4 * ccol, true);
+                } else {
+                    copy_async4(dst + r * S.rw + ccol, s + (long long)r * g.ny + ccol, true);
+                }
+            }
+        }
+    };
+    // frames 0 .. kResAhead - 1, one commit group each (empty past nf)
+    for (int f = 0; f < kResAhead; ++f) {
+        if (f < nf) load_frame(f);
+        copy_async_commit();
+    }
+
+    // the window's strides, as the cell reads them; variable v's window
+    // starts at wbase + v * w.field
+    Geom w = g;
+    w.nt = S.frames;
+    w.nx = S.rows;
+    w.ny = S.rw;
+    w.plane = S.slot;
+    w.field = W::field;
+    const float* wbase = win - W::vlo * W::field;
+    // this thread's rows: whether each is in the output, and its cell (JOREK's
+    // with its row's R and 1/R, read and divided once; the R table moves
+    // with the window)
+    const int ly = threadIdx.x % m.ty, lg = threadIdx.x / m.ty;
+    const bool col = y0 + ly < g.oy && lg < m.g;
+    using RowCell = std::decay_t<decltype(at_row(cell, 0))>;
+    RowCell rc[S.rows_a_thread];
+    bool live[S.rows_a_thread];
+#pragma unroll
+    for (int i = 0; i < S.rows_a_thread; ++i) {
+        const int r = lg + i * m.g;
+        live[i] = col && r < S.tx && x0 + r < g.ox;
+        rc[i] = at_row(at_rows(cell, x0), live[i] ? r : 0);
+    }
+    for (int j = 0; j < nt_out; ++j) {
+        // frames .. j + 2 have landed, everyone's
+        copy_async_wait<kResAhead - 3>();
+        __syncthreads();
+        const int f = j + kResAhead;   // no slot is reused: nothing waits for the readers
+        if (f < nf) load_frame(f);
+        copy_async_commit();
+        float* o = out + (((long long)b * g.ot + t0 + j) * g.ox + x0) * g.oy + y0 + ly;
+#pragma unroll
+        for (int i = 0; i < S.rows_a_thread; ++i) {
+            const int r = lg + i * m.g;
+            if (live[i]) o[(long long)r * g.oy] = rc[i](wbase, w, j, r, ly, FromShared());
+        }
+    }
 }
 
 // ---- K8: a constant stencil, one tile of one sample marching in t ----------
@@ -132,20 +357,6 @@ struct MarchGeom {
     int tc, chunks;              // output frames a block marches, chunks of ot
     long long blocks;
 };
-
-// The card's SM count in *n, which sizes the grids of K1 and K8.
-cudaError_t sm_count(int* n) {
-    static int cached = 0;
-    if (cached == 0) {
-        int dev = 0, v = 0;
-        cudaError_t e = cudaGetDevice(&dev);
-        if (e == cudaSuccess) e = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-        if (e != cudaSuccess) return e;
-        cached = v;
-    }
-    *n = cached;
-    return cudaSuccess;
-}
 
 // The ring and the grid of K8 for bs samples of g with a k-wide stencil on
 // a card of `sms` SMs. The output frames are cut into chunks only where
@@ -438,7 +649,6 @@ constexpr int kChunkTY = 32;                         // interior columns (y) of 
 constexpr int kChunkThreads = kChunkTX * kChunkTY;   // one (x, y) column per thread
 constexpr int kChunkMaxTb = 8;                       // frames a thread keeps sums for
 constexpr int kWinX = kChunkTX + 2, kWinY = kChunkTY + 2, kWinPlane = kWinX * kWinY;
-constexpr size_t kMaxSmem = 232448;                  // 227 KB, a block's most on sm_90
 
 // Dynamic shared memory of K3: 2 slots (double buffer) x 2 tensors (truth,
 // prediction) x nvar variables x (tb + 2) frames of the window.
@@ -571,14 +781,108 @@ diff_stats_chunked_kernel(const float* __restrict__ truth, const float* __restri
 // A maximum that keeps a NaN, as torch.amax does.
 __device__ __forceinline__ float nan_max(float a, float b) { return (a != a || a > b) ? a : b; }
 
+// A K9 block with a stash: kStashCells (or half as many, for a larger
+// batch) consecutive cells of the (x, y) plane of one output frame, each
+// walked by `lanes` threads, as K1's blocks are. Pass 1: lane l of a cell
+// takes samples l U .. l U + U - 1 of each group of lanes x U samples, U in
+// flight (`SamplesInFlight`, K1's), and stores each diff in the stash
+// [bs][cells] in shared memory, never in HBM. Then lane 0 of each cell
+// folds the stash in sample order into the sum (K1's fold), the mean, the
+// centred sum of squares (`centred_step`) and the modulation sqrt(m2 / n) +
+// eps. Pass 3: warp w takes samples w, w + warps, ..., reads one sample's
+// stashed diffs a row at a time (consecutive words: no bank conflict) and
+// takes the maximum of |diff| / mod over the block's cells; atomicMax on
+// the bits of the non-negative float (a NaN's bits exceed every number's)
+// takes it to the grid. The inputs are read once, and the arithmetic is
+// the recompute body's to the bit.
+constexpr int kStashCells = 64;
+// Pass 1 reads a cell's taps through L1, where the neighbouring cells'
+// loads hit. With the SM's 256 KB of L1 and shared memory all free for
+// stashes, 8 stashes of 64 cells at BS = 100 leave L1 ~50 KB; K9 asks for
+// half of it as shared memory (4 stashes) and leaves the rest to L1, and
+// takes 2 threads a cell where its blocks do not all fit at once: of the
+// settings timed on the H100, the fastest (PERF.md, tools/stencil_variants.py).
+constexpr int kStashCarveout = 50;
+constexpr int kStashLanes = 2;
+
+// Shared memory of a K9 block with a stash: the stash, then the modulation.
+size_t stash_smem_bytes(int bs, int cells) {
+    return sizeof(float) * ((size_t)bs + 1) * (size_t)cells;
+}
+
+// 1-D grid of ot x ceil(ox * oy / cells) blocks of cells x lanes threads;
+// block i holds frame i % ot. scores holds the bits of BS non-negative
+// floats, `stride` words apart, zeroed by the caller.
+template <class Cell, int U>
+__global__ void __launch_bounds__(kStashCells * kDiffMaxLanes)
+scores_stash_kernel(const float* __restrict__ truth, const float* __restrict__ pred,
+                    unsigned int* __restrict__ scores, int stride, int bs, int cells, int lanes,
+                    Geom g, const __grid_constant__ Cell cell, float eps) {
+    extern __shared__ float stash[];   // [bs][cells], then mod [cells]
+    float* modv = stash + (size_t)bs * cells;
+    const int t = (int)(blockIdx.x % g.ot);
+    const int lc = threadIdx.x % cells, lane = threadIdx.x / cells;
+    const int first = (int)(blockIdx.x / g.ot) * cells;
+    const int nplane = g.ox * g.oy;
+    // a thread past the plane's end computes the last cell; pass 3 leaves
+    // its column out
+    const int ic = min(first + lc, nplane - 1);
+    const int x = ic / g.oy, y = ic - x * g.oy;
+    auto diff_of = [&](int b) {
+        const long long off = (long long)b * g.sample;
+        return cell(truth + off, g, t, x, y) - cell(pred + off, g, t, x, y);
+    };
+
+    // pass 1: every diff into the stash, U samples in flight
+    const int gsize = lanes * U;
+    int b0 = lane * U;
+    for (; b0 + U <= bs; b0 += gsize) {
+        float d[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) d[u] = diff_of(b0 + u);
+#pragma unroll
+        for (int u = 0; u < U; ++u) stash[(size_t)(b0 + u) * cells + lc] = d[u];
+    }
+    for (int b = b0; b < bs; ++b) stash[(size_t)b * cells + lc] = diff_of(b);
+    __syncthreads();
+
+    // the sum in sample order as K1 forms it, then the centred sum of
+    // squares as K1 forms it, then the modulation as the score epilogue
+    // forms it: sqrt(m2 / n) + eps
+    if (lane == 0) {
+        float s = 0.0f;
+        for (int b = 0; b < bs; ++b) s = __fadd_rn(s, stash[(size_t)b * cells + lc]);
+        const float mean = batch_mean(s, bs);
+        float acc = 0.0f;
+        for (int b = 0; b < bs; ++b) acc = centred_step(acc, stash[(size_t)b * cells + lc], mean);
+        modv[lc] = __fadd_rn(sqrtf(__fmul_rn(acc, 1.0f / (float)bs)), eps);
+    }
+    __syncthreads();
+
+    // pass 3: |diff| / mod, maximised per sample over the block's cells
+    const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+    const int nlive = min(cells, nplane - first);
+    for (int b = warp; b < bs; b += nwarps) {
+        const float* row = stash + (size_t)b * cells;
+        float r = 0.0f;
+        for (int c = wl; c < nlive; c += 32) r = nan_max(r, fabsf(row[c]) / modv[c]);
+        for (int o = 16; o > 0; o >>= 1) r = nan_max(r, __shfl_xor_sync(0xffffffffu, r, o));
+        if (wl == 0) atomicMax(scores + (size_t)b * stride, __float_as_uint(r));
+    }
+}
+
+// The recompute body: K9's route where even a stash of kStashCells / 2
+// cells does not fit a block's shared memory (bs above ~1 800). One cell a
+// thread, three passes over the batch, each diff recomputed from the inputs
+// with the same cell, so the scores are the stash body's to the bit.
 constexpr int kScoreThreads = 256;
 
 // 1-D grid over the interior cells, one cell per thread. scores holds the
-// bits of BS non-negative floats, zeroed by the caller.
+// bits of BS non-negative floats, `stride` words apart, zeroed by the caller.
 template <class Cell>
 __global__ void __launch_bounds__(kScoreThreads)
 scores_single_pass_kernel(const float* __restrict__ truth, const float* __restrict__ pred,
-                          unsigned int* __restrict__ scores, int bs, Geom g, Cell cell,
+                          unsigned int* __restrict__ scores, int stride, int bs, Geom g, Cell cell,
                           float eps) {
     __shared__ float part[2][kScoreThreads / 32];
     const long long ncell = (long long)g.ot * g.ox * g.oy;
@@ -621,17 +925,30 @@ scores_single_pass_kernel(const float* __restrict__ truth, const float* __restri
         if (threadIdx.x == 0) {
             float m = part[b & 1][0];
             for (int w = 1; w < nwarps; ++w) m = nan_max(m, part[b & 1][w]);
-            atomicMax(scores + b, __float_as_uint(m));
+            atomicMax(scores + (size_t)b * stride, __float_as_uint(m));
         }
     }
 }
 
 // ---- host side ---------------------------------------------------------------
-// Threads along y: the output row rounded up to a warp, at most 128; rows
-// of x fill a block of 256 threads.
-dim3 row_block(int oy) {
-    const int ty = oy >= 128 ? 128 : ((oy + 31) / 32) * 32;
-    return dim3(ty, 256 / ty);
+// The variables (bit v for variable v) K2's cell of `kind` reads, 0 where
+// the kind is not K2's or the fields have fewer variables.
+unsigned residual_vars(int kind, int nvar) {
+    if (kind < kNsMomentum || kind > kJorekTemperature || kind == kTaps) return 0u;
+    const unsigned vars = cell_vars(kind);
+    return nvar < 32 && (vars >> nvar) != 0u ? 0u : vars;
+}
+
+// K2's geometry on this card, for bs samples of g and a cell reading `vars`.
+cudaError_t residual_geom_here(int bs, const Geom& g, unsigned vars, ResidualGeom* m) {
+    int sms = 0;
+    const cudaError_t e = sm_count(&sms);
+    if (e != cudaSuccess) return e;
+    *m = residual_geom(bs, g, vars, sms);
+    if (m->blocks < 1 || m->blocks > 0x7fffffffLL || m->smem > kMaxSmem) {
+        return cudaErrorInvalidValue;
+    }
+    return cudaSuccess;
 }
 
 struct ResidualLaunch {
@@ -639,14 +956,25 @@ struct ResidualLaunch {
     float* out;
     int bs;
     Geom g;
+    unsigned vars;
     cudaStream_t stream;
+
+    template <class Cell, bool Narrow>
+    int run(const Cell& cell, const ResidualGeom& m) const {
+        const auto kernel = residual_window_kernel<Cell, Narrow>;
+        const cudaError_t e = allow_smem(kernel, m.smem);
+        if (e != cudaSuccess) return (int)e;
+        const int vec = g.ny % 4 == 0 && reinterpret_cast<uintptr_t>(fields) % 16 == 0;
+        kernel<<<(unsigned)m.blocks, m.g * m.ty, m.smem, stream>>>(fields, out, g, m, vec, cell);
+        return (int)cudaGetLastError();
+    }
 
     template <class Cell>
     int operator()(const Cell& cell) const {
-        const dim3 block = row_block(g.oy);
-        const dim3 grid((unsigned)bs * g.ot, (g.ox + block.y - 1) / block.y);
-        residual_kernel<Cell><<<grid, block, 0, stream>>>(fields, out, g, cell);
-        return (int)cudaGetLastError();
+        ResidualGeom m;
+        const cudaError_t e = residual_geom_here(bs, g, vars, &m);
+        if (e != cudaSuccess) return (int)e;
+        return m.narrow ? run<Cell, true>(cell, m) : run<Cell, false>(cell, m);
     }
 };
 
@@ -769,21 +1097,86 @@ struct ChunkedLaunch {
     }
 };
 
+// The most lanes (kDiffMaxLanes down to 2) at which every one of `blocks`
+// K9 stash blocks of `cells` cells and `smem` bytes is resident at once on a
+// card of `sms` SMs (as `diff_stats_lanes` chooses K1's), else
+// kStashLanes.
+template <class Kernel>
+int stash_lanes(Kernel kernel, int cells, size_t smem, long long blocks, int sms) {
+    for (int lanes = kDiffMaxLanes; lanes > kStashLanes; --lanes) {
+        int per_sm = 0;
+        if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, cells * lanes, smem)
+                == cudaSuccess
+            && blocks <= (long long)per_sm * sms) {
+            return lanes;
+        }
+    }
+    return kStashLanes;
+}
+
+// K9's route by shape: a stash of kStashCells cells where it fits a block's
+// shared memory, else of half as many, else (cells = 0) the recompute body.
+int stash_cells(int bs) {
+    for (int cells = kStashCells; cells >= kStashCells / 2; cells /= 2) {
+        if (stash_smem_bytes(bs, cells) <= kMaxSmem) return cells;
+    }
+    return 0;
+}
+
+// K9: the stash body or, for a batch too large for its stash, the
+// recompute body. With `geom` set it only reports the launch: geom[0] the
+// stash's cells (0: the recompute body), then blocks, threads a block,
+// shared bytes and lanes.
 struct ScoresLaunch {
     const float* truth;
     const float* pred;
     unsigned int* scores;
+    int stride;
     int bs;
     Geom g;
     float eps;
     cudaStream_t stream;
+    long long* geom = nullptr;
 
     template <class Cell>
     int operator()(const Cell& cell) const {
+        const int cells = stash_cells(bs);
         const long long ncell = (long long)g.ot * g.ox * g.oy;
-        const unsigned blocks = (unsigned)((ncell + kScoreThreads - 1) / kScoreThreads);
-        scores_single_pass_kernel<Cell><<<blocks, kScoreThreads, 0, stream>>>(
-            truth, pred, scores, bs, g, cell, eps);
+        if (bs < 1 || ncell < 1) return (int)cudaErrorInvalidValue;
+        if (cells == 0) {
+            const long long blocks = (ncell + kScoreThreads - 1) / kScoreThreads;
+            if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+            if (geom != nullptr) {
+                const long long r[5] = {0, blocks, kScoreThreads, 0, 1};
+                std::copy(r, r + 5, geom);
+                return (int)cudaSuccess;
+            }
+            scores_single_pass_kernel<Cell><<<(unsigned)blocks, kScoreThreads, 0, stream>>>(
+                truth, pred, scores, stride, bs, g, cell, eps);
+            return (int)cudaGetLastError();
+        }
+        constexpr int U = SamplesInFlight<Cell>::value;
+        const auto kernel = scores_stash_kernel<Cell, U>;
+        const long long blocks = (long long)g.ot * (((long long)g.ox * g.oy + cells - 1) / cells);
+        if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+        const size_t smem = stash_smem_bytes(bs, cells);
+        cudaError_t e = allow_smem(kernel, smem);
+        if (e == cudaSuccess) {
+            e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                     kStashCarveout);
+        }
+        if (e != cudaSuccess) return (int)e;
+        int sms = 0;
+        e = sm_count(&sms);
+        if (e != cudaSuccess) return (int)e;
+        const int lanes = stash_lanes(kernel, cells, smem, blocks, sms);
+        if (geom != nullptr) {
+            const long long r[5] = {cells, blocks, (long long)cells * lanes, (long long)smem, lanes};
+            std::copy(r, r + 5, geom);
+            return (int)cudaSuccess;
+        }
+        kernel<<<(unsigned)blocks, cells * lanes, smem, stream>>>(truth, pred, scores, stride, bs,
+                                                                  cells, lanes, g, cell, eps);
         return (int)cudaGetLastError();
     }
 };
@@ -806,7 +1199,24 @@ CPPRE_EXPORT int cppre_stencil_residual(int kind, const void* fields, void* out,
     const CellArgs a{kind, cxy, cty, ctx, nu, dt, nullptr, nullptr, 0, rows, dc, kc};
     return with_cell<true, false>(a, ResidualLaunch{(const float*)fields, (float*)out, bs,
                                                    make_geom(nvar, nt, nx, ny, 3),
+                                                   residual_vars(kind, nvar),
                                                    (cudaStream_t)stream});
+}
+
+// K2's launch for the arguments of cppre_stencil_residual (kinds 0-5, 7-8)
+// on this card: geom[0..7] = blocks, threads a block, shared bytes, the
+// tile's rows and columns, the output frames a block runs, the runs, and
+// the variables with a window.
+CPPRE_EXPORT int cppre_stencil_residual_geom(int kind, int bs, int nvar, int nt, int nx, int ny,
+                                             long long* geom) {
+    ResidualGeom m;
+    const cudaError_t e =
+        residual_geom_here(bs, make_geom(nvar, nt, nx, ny, 3), residual_vars(kind, nvar), &m);
+    if (e != cudaSuccess) return (int)e;
+    const long long r[8] = {m.blocks, (long long)m.g * m.ty, (long long)m.smem, m.tx, m.ty,
+                            m.tc, m.chunks, m.nwin};
+    std::copy(r, r + 8, geom);
+    return (int)cudaSuccess;
 }
 
 // K8: a tap table built for the strides of K8's ring slot, which
@@ -901,8 +1311,11 @@ CPPRE_EXPORT int cppre_joint_cp_diff_stats_chunked(int kind, const void* truth, 
                                       (cudaStream_t)stream});
 }
 
+// scores: the bits of sample b's score at scores[b * score_stride], zeroed
+// by the caller.
 CPPRE_EXPORT int cppre_joint_cp_scores_single_pass(int kind, const void* truth,
-                                                   const void* pred, void* scores, int bs,
+                                                   const void* pred, void* scores,
+                                                   int score_stride, int bs,
                                                    int nvar, int nt, int nx, int ny, int k,
                                                    float cxy, float cty, float ctx, float nu,
                                                    float dt, const void* tap_off,
@@ -911,6 +1324,20 @@ CPPRE_EXPORT int cppre_joint_cp_scores_single_pass(int kind, const void* truth,
                                                    float eps, void* stream) {
     const CellArgs a{kind, cxy, cty, ctx, nu, dt, tap_off, tap_w, ntaps, rows, dc, kc};
     return with_cell(a, ScoresLaunch{(const float*)truth, (const float*)pred,
-                                     (unsigned int*)scores, bs, make_geom(nvar, nt, nx, ny, k),
-                                     eps, (cudaStream_t)stream});
+                                     (unsigned int*)scores, score_stride, bs,
+                                     make_geom(nvar, nt, nx, ny, k), eps, (cudaStream_t)stream});
+}
+
+// K9's launch for the arguments of cppre_joint_cp_scores_single_pass on
+// this card (no data pointers are read): geom[0] the stash's cells (0: the
+// recompute body), geom[1..4] blocks, threads a block, shared bytes, lanes.
+CPPRE_EXPORT int cppre_joint_cp_scores_single_pass_geom(int kind, int bs, int nvar, int nt,
+                                                        int nx, int ny, int k,
+                                                        long long* geom) {
+    static const int table[1] = {};   // only the instance is chosen from it
+    const CellArgs a{kind, 0.f, 0.f, 0.f, 0.f, 0.f, table, table, 1, nullptr, 0.f, 0.f};
+    ScoresLaunch launch{nullptr, nullptr, nullptr, 1, bs, make_geom(nvar, nt, nx, ny, k), 0.f,
+                        nullptr};
+    launch.geom = geom;
+    return with_cell(a, launch);
 }

@@ -12,7 +12,9 @@ is the plain version of every kernel it runs in.
 * K2 `_batched_residual_fused`: fields [BS, Nvar, Nt, Nx, Ny] -> the
   interior residual [BS, Nt-2, Nx-2, Ny-2]. Instances
   `ns_momentum_residual_fused`, `mhd_residual_fused`,
-  `mhd_induction_residual_fused`, `jorek_residual_fused`.
+  `mhd_induction_residual_fused`, `jorek_residual_fused`. A block stages
+  the frames of one tile of one sample, a run of them, in shared memory
+  once and evaluates the cell there (`_residual_geom`).
 * K8 `fused_stencil_residual`: field [BS, Nt, Nx, Ny] and a constant odd
   k^3 kernel -> [BS, Nt-k+1, Nx-k+1, Ny-k+1], optionally |.|; the plain
   version is `stencil_shift_add(field, kernel, same=False)`. A block
@@ -39,9 +41,11 @@ is the plain version of every kernel it runs in.
   `routing_decision`) followed by the `_scores_from_diff_stats`
   epilogue in plain torch, as in the JAX package; or, with `single_pass=True` (NS and MHD entries), K9
   `_joint_cp_scores_single_pass`, one launch and no diff tensor. On the
-  card `single_pass=True` always launches K9: its Hopper design stashes
-  nothing, so the TPU's VMEM fit test (`single_pass_fits`) has no
-  counterpart. The scores are those of the two-pass route.
+  card `single_pass=True` always launches K9: a block keeps its 64 (or
+  32) cells' diffs over the batch in shared memory, and a batch too large
+  for that takes K9's recompute body (`_k9_grid`), so the TPU's VMEM fit
+  test (`single_pass_fits`) has no counterpart. The scores are those of
+  the two-pass route.
 
 The modulation std of the scores comes from the centred sum of squares
 sum_b (d_b - mean)^2, a second pass over the batch (K1 forms it when the
@@ -390,6 +394,20 @@ def _launch_residual(fields, res: _Residual, what: str):
                 *cell[9:], _build.stream_of(fields))
     _build.check(lib, rc, what)
     return out
+
+
+def _residual_geom(shape, res: _Residual):
+    """K2's launch for [BS, Nvar, Nt, Nx, Ny] fields and cell `res` on this
+    card, as the library chooses it: blocks, threads (a block), smem (bytes),
+    tile (output rows, columns), frames (output frames a block runs), runs
+    (of the output frames) and windows (the variables staged)."""
+    lib = _build.library("stencil_kernels")
+    fn = _build.declare(lib, "cppre_stencil_residual_geom", [_I] * 6 + [_P])
+    g = (ctypes.c_longlong * 8)()
+    _build.check(lib, fn(res.kind, *shape, g), "K2 geometry")
+    g = [int(v) for v in g]
+    return dict(blocks=g[0], threads=g[1], smem=g[2], tile=(g[3], g[4]), frames=g[5],
+                runs=g[6], windows=g[7])
 
 
 def _batched_residual_fused(fields, res: _Residual, what: str = "residual"):
@@ -838,13 +856,21 @@ def _scores_from_diff_stats(diff, m2, n: int, eps: float):
     return torch.amax(r, dim=tuple(range(1, diff.ndim)))
 
 
+# K9 keeps sample b's score at word b * _SCORE_STRIDE, one 128-byte line
+# each, so that the blocks' atomic maxima for different samples do not queue
+# on one line of L2 (on the H100 a tenth of K9's time with the scores side by
+# side, PERF.md).
+_SCORE_STRIDE = 32
+
+
 def _joint_cp_scores_single_pass(truth, prediction, res: _Residual, eps: float,
                                  what: str = "joint_cp_scores_single_pass"):
     """Kernel K9: the joint-CP scores [BS] of cell `res` in one launch that
-    writes no diff tensor. Equal to the two-pass route's scores: the same
-    cell forms each diff, the sum and the centred sum of squares are taken
-    in the same order and rounding, and a maximum does not depend on the
-    order it is taken in."""
+    writes no diff tensor: each block keeps its cells' diffs in shared
+    memory, or for a batch too large for that recomputes them (`_k9_grid`).
+    Equal to the two-pass route's scores: the same cell forms each diff,
+    the sum and the centred sum of squares are taken in the same order and
+    rounding, and a maximum does not depend on the order it is taken in."""
     _check_pair(truth, prediction, res, what)
     if not _build.on_cuda(truth):
         d, _, _, m2 = _diff_stats_plain(truth, prediction, res, centred=True)
@@ -852,21 +878,35 @@ def _joint_cp_scores_single_pass(truth, prediction, res: _Residual, eps: float,
     _build.require(truth, "truth")
     _build.require(prediction, "prediction", truth.shape, device=truth.device)
     bs, nvar, nt, nx, ny = truth.shape
-    bits = torch.zeros(bs, device=truth.device, dtype=torch.int32)
+    bits = torch.zeros(bs * _SCORE_STRIDE, device=truth.device, dtype=torch.int32)
     cell, tables = _cell_args(res, truth.shape, truth.device)
     lib = _build.library("stencil_kernels")
     fn = _build.declare(lib, "cppre_joint_cp_scores_single_pass",
-                        [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_CELL_TYPES, _F, _P])
+                        [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *_CELL_TYPES, _F, _P])
     with torch.cuda.device(truth.device):
-        rc = fn(cell[0], truth.data_ptr(), prediction.data_ptr(), bits.data_ptr(), bs, nvar,
-                nt, nx, ny, res.k, *cell[1:], float(np.float32(eps)),
+        rc = fn(cell[0], truth.data_ptr(), prediction.data_ptr(), bits.data_ptr(),
+                _SCORE_STRIDE, bs, nvar, nt, nx, ny, res.k, *cell[1:], float(np.float32(eps)),
                 _build.stream_of(truth))
     _build.check(lib, rc, what)
     _joint_cp_scores_single_pass.launches += 1
-    return bits.view(torch.float32)
+    return bits[::_SCORE_STRIDE].contiguous().view(torch.float32)
 
 
 _joint_cp_scores_single_pass.launches = 0
+
+
+def _k9_grid(shape, res: _Residual):
+    """K9's launch for [BS, Nvar, Nt, Nx, Ny] inputs and cell `res` on this
+    card: route ('stash', or 'recompute' for a batch whose stash does not
+    fit a block's shared memory), cells (a block's stash, 0 without one),
+    blocks, threads (a block), smem (bytes) and lanes (threads a cell)."""
+    lib = _build.library("stencil_kernels")
+    fn = _build.declare(lib, "cppre_joint_cp_scores_single_pass_geom", [_I] * 7 + [_P])
+    g = (ctypes.c_longlong * 5)()
+    _build.check(lib, fn(res.kind, *shape, res.k, g), "K9 geometry")
+    g = [int(v) for v in g]
+    return dict(route="stash" if g[0] else "recompute", cells=g[0], blocks=g[1],
+                threads=g[2], smem=g[3], lanes=g[4])
 
 
 def _scores(truth, prediction, res, eps, samples_per_block, diff_dtype, single_pass, what):

@@ -721,3 +721,144 @@ def test_k1_and_k8_grids(dev):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     one = sk._march_geom((1, 20, 64, 64), 3)[2]
     assert 4 * sms <= one or one == -(-62 // rows) * 18
+
+
+# ---- K2 staging its tiles' frames, K9 keeping its diffs in shared memory ------
+
+# (cell, fields shape, what the case exercises): tiles that do not divide
+# the output plane, rows without 16-byte copies (Ny % 4 != 0), one sample,
+# one output frame, and batches whose frames run in several blocks (the
+# last run shorter) or in one.
+K2_CASES = {
+    "ns-ragged": ("ns", (3, 3, 7, 21, 75)),
+    "ns-ny-odd": ("ns", (2, 3, 6, 13, 41)),
+    "ns-bs1": ("ns", (1, 3, 9, 18, 70)),
+    "ns-nt3": ("ns", (4, 3, 3, 20, 68)),
+    "ns-runs": ("ns", (40, 3, 12, 20, 70)),
+    "ns-one-run": ("ns", (300, 3, 5, 20, 40)),
+    "jorek-continuity": ("jorek-continuity", (5, 3, 12, 32, 32)),
+    "jorek-temperature": ("jorek-temperature", (3, 3, 9, 19, 45)),
+}
+K2_CASES.update({f"mhd-{e}": (f"mhd-{e}", (3, 6, 7, 17, 70)) for e in K.MHD_EQUATIONS})
+
+
+def _k2_case(name, dev):
+    which, shape = K2_CASES[name]
+    if which == "ns":
+        return _randn(shape, 70, dev), sk._ns_cell(*ARGS)
+    if which.startswith("mhd"):
+        return _mhd(shape, 70, dev), sk._mhd_cell(which[4:])
+    cell = sk._jorek_cell(_jorek_r(shape[3], affine=False), 3.4, 2.25e-7, which[6:])
+    return _randn(shape, 70, dev), cell
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("name", list(K2_CASES))
+def test_k2_stages_its_tiles_frames(dev, name, aligned):
+    """K2 against its plain version (1e-5 of max) and bit for bit on a rerun,
+    for every cell (JOREK on a non-affine R) at ragged shapes, from a
+    16-byte-aligned field and from one that is not (4-byte copies)."""
+    f, cell = _k2_case(name, dev)
+    if not aligned:
+        buf = torch.empty(f.numel() + 1, device=dev)
+        f = buf[1:].view(f.shape).copy_(f)
+        assert f.data_ptr() % 16 != 0
+    before = K.launch_counts()["K2"]
+    got = sk._batched_residual_fused(f, cell)
+    assert K.launch_counts()["K2"] == before + 1
+    _close(got, cell.math(f), 1e-5)
+    assert torch.equal(got, sk._batched_residual_fused(f, cell))
+
+
+def test_k2_geometry(dev):
+    """K2's tiles follow the plane (NS 98 -> 52-wide, MHD 126 -> 64, JOREK 30
+    -> 32), its windows fit three blocks an SM where the cell reads at most
+    3 variables and two where it reads more, the small cases run their
+    frames as the cases above say, and every output frame is in one run."""
+    ns = sk._residual_geom((100, 3, 20, 100, 100), sk._ns_cell(*ARGS))
+    mhd = sk._residual_geom((100, 6, 20, 128, 128), sk._mhd_cell("induction"))
+    jorek = sk._residual_geom((100, 3, 40, 32, 32),
+                              sk._jorek_cell(_jorek_r(32), 3.4, 2.25e-7, "continuity"))
+    assert (ns["tile"][1], mhd["tile"][1], jorek["tile"][1]) == (52, 64, 32)
+    assert (ns["windows"], mhd["windows"], jorek["windows"]) == (3, 5, 2)
+    for g, ot, per_sm in ((ns, 18, 3), (mhd, 18, 2), (jorek, 38, 3)):
+        assert per_sm * (g["smem"] + 1024) <= 233472 and g["threads"] <= 256
+        assert g["frames"] * g["runs"] >= ot > g["frames"] * (g["runs"] - 1)
+    runs = {n: sk._residual_geom(K2_CASES[n][1], _k2_case(n, dev)[1])
+            for n in ("ns-runs", "ns-one-run", "ns-nt3")}
+    assert runs["ns-runs"]["frames"] > 1 and 10 % runs["ns-runs"]["frames"] != 0
+    assert runs["ns-runs"]["runs"] > 1
+    assert runs["ns-one-run"]["runs"] == 1 and runs["ns-one-run"]["frames"] == 3
+    assert runs["ns-nt3"]["frames"] == 1
+
+
+def _k9_case(kind, bs, dev, shape=(5, 12, 40)):
+    if kind == "ns":
+        t, cell = _randn((bs, 3) + shape, 71, dev), sk._ns_cell(*ARGS)
+    elif kind == "taps":
+        t, cell = _randn((bs, 1) + shape, 71, dev), sk._taps_cell(_wave_kernel(corner=True))
+    else:
+        t, cell = _mhd((bs, 6) + shape, 71, dev), sk._mhd_cell(kind)
+    return t, t + 0.1 * _randn(t.shape, 72, dev), cell
+
+
+def _k9_check(t, p, cell):
+    before = K.launch_counts()
+    one = sk._joint_cp_scores_single_pass(t, p, cell, 1e-6)
+    after = K.launch_counts()
+    assert (after["K9"] - before["K9"], after["K1"] - before["K1"]) == (1, 0)
+    two = sk._scores(t, p, cell, 1e-6, 1, None, False, "two-pass")
+    _close(one, sk._scores_plain(t, p, cell, 1e-6, None, "plain"), 1e-5)
+    assert (one - two).abs().max().item() <= 1e-6 * two.abs().max().item()
+    assert torch.equal(one, sk._joint_cp_scores_single_pass(t, p, cell, 1e-6))
+    return one
+
+
+@pytest.mark.parametrize("bs", [1, 7, 100, 1000, 1900])
+@pytest.mark.parametrize("kind", ["ns", "induction"])
+def test_k9_stashes_the_batch(dev, kind, bs):
+    """K9 against its plain version (1e-5 of max) and the two-pass route
+    (1e-6), bit for bit on a rerun, at batch sizes whose stash holds 64
+    cells (1, 7, 100), 32 cells (1000) and none, the recompute body (1900)."""
+    t, p, cell = _k9_case(kind, bs, dev, shape=(4, 6, 9) if bs >= 1000 else (5, 12, 40))
+    route = sk._k9_grid(tuple(t.shape), cell)
+    assert (route["route"], route["cells"]) == (
+        ("stash", 64) if bs <= 100 else ("stash", 32) if bs == 1000 else ("recompute", 0))
+    _k9_check(t, p, cell)
+
+
+@pytest.mark.parametrize("kind", list(K.MHD_EQUATIONS) + ["taps"])
+def test_k9_takes_every_cell_it_took(dev, kind):
+    """K9 for every MHD equation and a device tap table (9 taps), at a
+    ragged plane and a batch that is not a multiple of its groups."""
+    _k9_check(*_k9_case(kind, 9, dev, shape=(6, 11, 37)))
+
+
+@pytest.mark.parametrize("route_bs", [9, 1900])
+def test_k9_keeps_a_nan(dev, route_bs):
+    """A NaN in one sample's fields makes the modulation of the cells it
+    touches NaN, so every score is NaN, as the plain version's and the
+    two-pass route's are; both K9 bodies, bit for bit on a rerun."""
+    t, p, cell = _k9_case("ns", route_bs, dev, shape=(4, 6, 9))
+    t[route_bs // 2, 0, 2, 3, 4] = float("nan")
+    one = sk._joint_cp_scores_single_pass(t, p, cell, 1e-6)
+    assert bool(torch.isnan(one).all())
+    assert bool(torch.isnan(sk._scores_plain(t, p, cell, 1e-6, None, "plain")).all())
+    assert bool(torch.isnan(sk._scores(t, p, cell, 1e-6, 1, None, False, "two-pass")).all())
+    again = sk._joint_cp_scores_single_pass(t, p, cell, 1e-6)
+    assert torch.equal(one.view(torch.int32), again.view(torch.int32))
+
+
+def test_k9_geometry(dev):
+    """K9 at the flagship shapes: 64-cell stashes of the 100-sample batch,
+    K1's block count, two threads a cell where the blocks do not all fit at
+    once; then the stash's cells, and the recompute body, by batch size."""
+    ns = sk._k9_grid((100, 3, 21, 100, 100), sk._ns_cell(*ARGS))
+    mhd = sk._k9_grid((100, 6, 20, 128, 128), sk._mhd_cell("induction"))
+    assert ns == dict(route="stash", cells=64, blocks=19 * 151, threads=128,
+                      smem=101 * 64 * 4, lanes=2)
+    assert mhd["blocks"] == 18 * -(-126 * 126 // 64) and mhd["smem"] == 101 * 64 * 4
+    assert sk._k9_grid((907, 3, 5, 6, 7), sk._ns_cell(*ARGS))["cells"] == 64
+    assert sk._k9_grid((908, 3, 5, 6, 7), sk._ns_cell(*ARGS))["cells"] == 32
+    assert sk._k9_grid((1815, 3, 5, 6, 7), sk._ns_cell(*ARGS))["cells"] == 32
+    assert sk._k9_grid((1816, 3, 5, 6, 7), sk._ns_cell(*ARGS))["route"] == "recompute"

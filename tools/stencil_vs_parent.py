@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Hold this checkout's K1 and K8 bit for bit against another checkout's,
-and time both in turns on one CUDA card, with K2 beside them.
+"""Hold this checkout's K1, K2, K8 and K9 bit for bit against another
+checkout's, and time both in turns on one CUDA card.
 
     python3 tools/stencil_vs_parent.py PARENT_DIR
 
@@ -11,20 +11,30 @@ sources. At `chip_smoke.py`'s shapes, with its seeded fields:
 - bitwise: K1's diff (float32 and bfloat16), sum, sumsq and, with the
   centred pass, m2 for the NS, wave, MHD-induction and JOREK cells and at
   the four grid-scaling shapes; K8's output at the wave shape, plain and
-  with |.|. Each line says `equal=True` or names what differs.
+  with |.|; K2's output at the NS shape (the served [100, 3, 20, 100,
+  100]), for the five MHD equations and for the two JOREK equations on the
+  affine and a non-affine R; K9's scores at the NS and MHD-induction
+  shapes. Each line says `equal=True` or names what differs.
 - turns: K1 uncentred and centred at the eight shapes, K8 in both forms,
-  K2 at the NS, MHD-induction and JOREK shapes, each timed
-  (`chip_smoke.cuda_ms`, median of 15 CUDA-event-timed calls) in the order
-  parent, change, change, parent, change, parent, parent, change, with
-  the blocks each launches and the card's SM clock, temperature and power
-  after its turns.
-- ptxas: registers and spill bytes of this checkout's K1 and K8 kernels
-  (`diff_stats_kernel`, `stencil_march_kernel`).
+  K2 at each of its instances above (the NS one on a prepared contiguous
+  tensor, as `chip_smoke.py` times it), K9 at its two shapes beside the
+  two-pass route (K1 centred and the score epilogue, this checkout's),
+  each timed (`chip_smoke.cuda_ms`, median of 15 CUDA-event-timed calls)
+  in the order parent, change, change, parent, change, parent, parent,
+  change, with the blocks each launches and the card's SM clock,
+  temperature and power after its turns; K2 and K9 also by their device
+  time (`chip_smoke.device_ms`, torch.profiler over 20 calls), which
+  leaves out the host's launch time that the events around one call hold.
+- ptxas: registers and spill bytes of this checkout's K1, K2, K8 and K9
+  kernels (`diff_stats_kernel`, `residual_window_kernel`,
+  `stencil_march_kernel`, `scores_stash_kernel`,
+  `scores_single_pass_kernel`).
 - sass: in each checkout's K1 kernels, the FFMAs whose two factors are one
   register (the q += d * d of the sum of squares), from `cuobjdump -sass`.
 
 Prints the card's name and power limit first. Exits 1 if any output
-differs from the parent's or a K1/K8 kernel spills. Needs one card.
+differs from the parent's or a K1, K2, K8 or K9 kernel spills. Needs one
+card.
 """
 
 from __future__ import annotations
@@ -42,7 +52,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TURNS = ("parent", "change", "change", "parent", "change", "parent", "parent", "change")
-NEW_BODIES = ("diff_stats_kernel", "stencil_march_kernel")
+NEW_BODIES = ("diff_stats_kernel", "stencil_march_kernel", "residual_window_kernel",
+              "scores_stash_kernel", "scores_single_pass_kernel")
 
 
 def load(path):
@@ -78,16 +89,18 @@ def differs(a, b):
 
 
 def cases(cs, pkg, dev):
-    """({name: (fields shape, seed, cell maker, K2 runner or None)}, the wave
-    kernel) at chip_smoke's shapes: K1's families, then the grid-scaling
-    shapes. A cell maker takes a package's stencil module; a K2 runner that
-    module and the truth fields."""
+    """({name: (fields shape, seed, cell maker, K2 runners, K9 runner)}, the
+    wave kernel) at chip_smoke's shapes: K1's families, then the
+    grid-scaling shapes. A cell maker takes a package's stencil module; K2's
+    instances ({name: (prepare, cell maker)}) each prepare their input from
+    the truth fields once; a K9 runner takes a module, truth, prediction and
+    single_pass."""
     c = pkg["change"]["wave"].CONFIG
     sim = pkg["change"]["Wave2D"](c["Nx"], c["x_min"], c["x_max"], c["tend"], c["c"], device=dev)
     wave_kern = np.asarray(pkg["change"]["PRE_Wave"](sim.dt * c["t_slice"], sim.dx,
                                                      c["c"]).D.kernel)
     jc = pkg["change"]["jorek"].CONFIG
-    R = cs.jorek_r(cs.JOREK["nx"])
+    R, Rn = cs.jorek_r(cs.JOREK["nx"]), cs.jorek_r(cs.JOREK["nx"], affine=False)
     args = (cs.DT, cs.DX, cs.DY, cs.NU)
     cell = {
         "ns": lambda sk: sk._ns_cell(*args),
@@ -95,17 +108,26 @@ def cases(cs, pkg, dev):
         "mhd": lambda sk: sk._mhd_cell("induction"),
         "jorek": lambda sk: sk._jorek_cell(R, jc["D"], jc["K"], jc["equation"]),
     }
+    whole = lambda t: t
     k2 = {
-        "ns": lambda sk, t: sk.ns_momentum_residual_fused(t[:, :, :cs.T_OUT].contiguous(), *args),
-        "mhd": lambda sk, t: sk.mhd_residual_fused(t, "induction"),
-        "jorek": lambda sk, t: sk.jorek_residual_fused(t, R, Dc=jc["D"], K=jc["K"],
-                                                       equation=jc["equation"]),
+        "ns": {"ns": (lambda t: t[:, :, :cs.T_OUT].contiguous(), cell["ns"])},
+        "mhd": {f"mhd-{eq}": (whole, lambda sk, eq=eq: sk._mhd_cell(eq))
+                for eq in cs.MHD_RES_FLOPS},
+        "jorek": {f"jorek-{eq}{tag}": (whole, lambda sk, eq=eq, r=r: sk._jorek_cell(
+                      r, jc["D"], jc["K"], eq))
+                  for eq in cs.JOREK_RES_FLOPS for tag, r in (("", R), ("-non-affine-R", Rn))},
     }
-    out = {"ns": ((100, 3, 21, 100, 100), cs.SEED + 41, cell["ns"], k2["ns"]),
+    k9 = {
+        "ns": lambda sk, t, p, sp: sk.ns_joint_cp_scores_fused(t, p, *args, eps=cs.EPS,
+                                                               single_pass=sp),
+        "mhd": lambda sk, t, p, sp: sk.mhd_induction_joint_cp_scores_fused(t, p, eps=cs.EPS,
+                                                                           single_pass=sp),
+    }
+    out = {"ns": ((100, 3, 21, 100, 100), cs.SEED + 41, cell["ns"], k2["ns"], k9["ns"]),
            "wave": ((cs.WAVE["res_shape"][0], 1) + cs.WAVE["res_shape"][1:], cs.SEED + 10,
-                    cell["wave"], None),
-           "mhd": (cs.MHD["res_shape"], cs.SEED + 20, cell["mhd"], k2["mhd"]),
-           "jorek": (cs.JOREK["res_shape"], cs.SEED + 60, cell["jorek"], k2["jorek"])}
+                    cell["wave"], {}, None),
+           "mhd": (cs.MHD["res_shape"], cs.SEED + 20, cell["mhd"], k2["mhd"], k9["mhd"]),
+           "jorek": (cs.JOREK["res_shape"], cs.SEED + 60, cell["jorek"], k2["jorek"], None)}
     scale_kern = cs._wave_composite_kernel()
     for fam, shape in cs.SCALING.items():
         if fam == "wave":
@@ -115,8 +137,21 @@ def cases(cs, pkg, dev):
             mk = lambda sk, Rs=Rs: sk._jorek_cell(Rs, 3.4, 2.25e-7, "continuity")
         else:
             mk = cell[fam]
-        out[f"scaling-{fam}"] = (shape, cs.SEED + 40, mk, None)
+        out[f"scaling-{fam}"] = (shape, cs.SEED + 40, mk, {}, None)
     return out, wave_kern
+
+
+def turns(cs, run, timer=None):
+    """{who: [ms, ...]} of run[who] timed in the order of TURNS (by
+    `cs.cuda_ms`, or `timer`); a runner that is neither parent nor change
+    takes each turn beside change."""
+    timer = timer or cs.cuda_ms
+    t = {who: [] for who in run}
+    for who in TURNS:
+        for w in [who] + ([k for k in run if k not in TURNS] if who == "change" else []):
+            ms = timer(run[w])
+            t[w].append(None if ms is None else round(ms, 4))
+    return t
 
 
 def main(argv):
@@ -163,7 +198,7 @@ def main(argv):
     dev = torch.device("cuda", 0)
     table, wave_kern = cases(cs, pkg, dev)
     sk, psk = pkg["change"]["sk"], pkg["parent"]["sk"]
-    for name, (shape, seed, mk, k2) in table.items():
+    for name, (shape, seed, mk, k2, k9) in table.items():
         torch.cuda.empty_cache()
         truth, pred = cs.device_fields(shape, seed, dev, density=name.endswith("mhd"))
         res = {"change": mk(sk), "parent": mk(psk)}
@@ -191,12 +226,43 @@ def main(argv):
               f"threads_a_block={threads} change_ms={t[(False, 'change')]} "
               f"parent_ms={t[(False, 'parent')]} centred_change_ms={t[(True, 'change')]} "
               f"centred_parent_ms={t[(True, 'parent')]} {card_state()}", flush=True)
-        if k2 is not None:
-            tk = {who: [] for who in mods}
-            for who in TURNS:
-                tk[who].append(round(cs.cuda_ms(lambda: k2(mods[who], truth)), 4))
-            print(f"[turns] K2 {name} change_ms={tk['change']} parent_ms={tk['parent']} "
+        for inst, (prepare, mk2) in k2.items():
+            f, cell2 = prepare(truth), {who: mk2(mods[who]) for who in mods}
+            run = {who: (lambda who=who: mods[who]._batched_residual_fused(f, cell2[who]))
+                   for who in mods}
+            same = torch.equal(run["change"](), run["parent"]())
+            print(f"[bitwise] K2 {inst} equal={same}", flush=True)
+            if not same:
+                bad.append(f"K2 {inst}")
+            tk, td = turns(cs, run), turns(cs, run, cs.device_ms)
+            geom = sk._residual_geom(tuple(f.shape), cell2["change"])
+            print(f"[turns] K2 {inst} shape={json.dumps(list(f.shape))} "
+                  f"blocks={geom['blocks']} threads_a_block={geom['threads']} "
+                  f"smem={geom['smem']} tile={json.dumps(list(geom['tile']))} "
+                  f"frames_a_block={geom['frames']} change_ms={tk['change']} "
+                  f"parent_ms={tk['parent']} change_device_ms={td['change']} "
+                  f"parent_device_ms={td['parent']} {card_state()}", flush=True)
+            del f
+        if k9 is not None:
+            run = {who: (lambda who=who: k9(mods[who], truth, pred, True)) for who in mods}
+            run["two_pass"] = lambda: k9(sk, truth, pred, False)
+            got = {who: run[who]() for who in run}
+            same = torch.equal(got["change"], got["parent"])
+            gap = float((got["change"] - got["two_pass"]).abs().max()
+                        / got["two_pass"].abs().max())
+            print(f"[bitwise] K9 {name} equal={same} vs_two_pass_rel={gap:.3e}", flush=True)
+            if not same:
+                bad.append(f"K9 {name}")
+            tk, td = turns(cs, run), turns(cs, run, cs.device_ms)
+            geom = sk._k9_grid(tuple(truth.shape), res["change"])
+            print(f"[turns] K9 {name} shape={json.dumps(list(shape))} route={geom['route']} "
+                  f"cells={geom['cells']} blocks={geom['blocks']} "
+                  f"threads_a_block={geom['threads']} smem={geom['smem']} "
+                  f"change_ms={tk['change']} parent_ms={tk['parent']} "
+                  f"two_pass_ms={tk['two_pass']} change_device_ms={td['change']} "
+                  f"parent_device_ms={td['parent']} two_pass_device_ms={td['two_pass']} "
                   f"{card_state()}", flush=True)
+            del got
         if name == "wave":
             field = truth[:, 0]
             for take_abs in (False, True):
@@ -207,9 +273,7 @@ def main(argv):
                 print(f"[bitwise] {tag} equal={same}", flush=True)
                 if not same:
                     bad.append(tag)
-                tk = {who: [] for who in mods}
-                for who in TURNS:
-                    tk[who].append(round(cs.cuda_ms(run[who]), 4))
+                tk = turns(cs, run)
                 print(f"[turns] {tag} shape={json.dumps(list(field.shape))} "
                       f"blocks={sk._march_geom(tuple(field.shape), 3)[2]} change_ms={tk['change']} "
                       f"parent_ms={tk['parent']} {card_state()}", flush=True)
