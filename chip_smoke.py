@@ -32,8 +32,8 @@ timed. Phases, one line each:
   build      compile the kernels from `cppre_torch/csrc` (nvcc, in parallel);
              then one `ptxas` line per kernel function: registers and spills;
              a spill in any instance of the FNO kernels' stages (K4-K7:
-             `FNO_BLOCK_STAGES`) or of K1's, K2's, K8's and K9's bodies
-             fails the run
+             `FNO_BLOCK_STAGES`) or of K1's, K2's, K3's, K8's, K9's and
+             K10's bodies fails the run
   device     the card, and its name and power limit from nvidia-smi
   kernels    every kernel against its plain version at the main paths'
              shapes (K1, K2, K4, K5 at the NS serving shapes, and K9 at K1's
@@ -81,7 +81,9 @@ timed. Phases, one line each:
              scores and calibrate at alpha=0.1 (the main path); K3 against
              its plain version (1e-5 of max) and K1 (bit for bit, with its
              centred pass), t_block 1, 2 and 5 bit for bit, the routed qhat
-             against the plain route's (1e-3), K3 / K1 / plain ms; then one
+             against the plain route's (1e-3), K3 / K1 / plain ms and K3's
+             grid (blocks, threads, shared bytes, tile, frames a block,
+             chunks; its ring slot that of the tap table); then one
              `[route]` line per flagship K1 shape, K1 ms beside K3 ms
   flat       per family (NS; wave with the composite kernel and a corner-tap
              kernel; MHD, five equations): the flat scores and calibrate by
@@ -89,6 +91,7 @@ timed. Phases, one line each:
              path); K10 against its plain version over the whole window
              (1e-5 of max), K11 then K12 against K10 (bit for bit), the flat
              qhat against the plain flat qhat (1e-3); K10, K11, K12, plain ms
+             and K10's grid
 
 The launch counters are set to 0 before each main path (NS serve +
 calibrate; NS train; wave; MHD; JOREK; each scaling shape; each flat family) and
@@ -251,7 +254,8 @@ def cuda_ms(fn, reps=REPS):
 def device_ms(fn, reps=20):
     """Device milliseconds of one call of `fn`: the kernels and memory
     operations of `reps` calls under torch.profiler (`device_activity`),
-    over reps; None where the profiler cannot tell them apart. `cuda_ms`'s
+    over reps; None where the profiler cannot tell them apart or kept a
+    number of records that is not a whole number of calls. `cuda_ms`'s
     events around one call also hold the host's time to launch it, tens of
     microseconds, most of the time of a kernel as short as JOREK's K2."""
     import torch
@@ -263,7 +267,7 @@ def device_ms(fn, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total, records = 0.0, 0
     for e in prof.events():
         if not str(e.device_type).endswith("CUDA"):
             continue
@@ -272,6 +276,11 @@ def device_ms(fn, reps=20):
             return None
         if activity:
             total += e.time_range.elapsed_us() / 1e3
+            records += 1
+    # every call launches the same work, so a count of records that is not
+    # a multiple of reps means the profiler lost some
+    if records == 0 or records % reps:
+        return None
     return total / reps
 
 
@@ -349,9 +358,10 @@ def _kernel_name(mangled):
 
 
 # The kernel functions of K4-K7 (csrc/fno_block.cu, fno_block_bwd.cu and
-# their headers), and of K1, K2, K8 and K9 (csrc/stencil_kernels.cu): built
-# to keep every instance's working set in registers, so a spill in any of
-# them is a fault of the build.
+# their headers), of K1, K2, K3, K8 and K9 (csrc/stencil_kernels.cu) and of
+# K10 (K1's body in csrc/flat_kernels.cu): built to keep every instance's
+# working set in registers, so a spill in any of them is a fault of the
+# build.
 FNO_BLOCK_STAGES = ("dft_fwd_kernel", "spectral_mix_kernel", "inverse_x_kernel",
                     "block_out_tile_kernel", "block_bwd_tile_kernel", "idft_dx_tile_kernel",
                     "spectral_adjoint_kernel", "reduce_rows_kernel", "projection_tile_kernel",
@@ -359,7 +369,8 @@ FNO_BLOCK_STAGES = ("dft_fwd_kernel", "spectral_mix_kernel", "inverse_x_kernel",
 NO_SPILL = {"fno_block": FNO_BLOCK_STAGES, "fno_block_bwd": FNO_BLOCK_STAGES,
             "stencil_kernels": ("diff_stats_kernel", "stencil_march_kernel",
                                 "residual_window_kernel", "scores_stash_kernel",
-                                "scores_single_pass_kernel")}
+                                "scores_single_pass_kernel", "diff_stats_chunked_kernel"),
+            "flat_kernels": ("diff_stats_kernel",)}
 
 
 def ptxas_summary(report):
@@ -827,8 +838,9 @@ def phase_kernels_jorek(results, device):
     results[("K3", "jorek")] = dict(
         max_abs_err=err, rel_err=rel, bound=bnd, plain_ms=plain_ms,
         ms=cuda_ms(lambda: K.jorek_joint_cp_diff_stats_chunked(truth, pred, R, **coef)))
-    report(results, "K3", "jorek", k3_vs_k1_bitwise=True,
-           t_block_run=sk._chunk_t_block(5, 3, JOREK["res_shape"][2] - 2))
+    geom = sk._chunk_geom(tuple(JOREK["res_shape"]), cell)
+    report(results, "K3", "jorek", k3_vs_k1_bitwise=True, t_block_run=geom["frames"],
+           blocks=geom["blocks"], smem_bytes=geom["smem"])
     del truth, pred, d, s, q, d0, s0, q0
     torch.cuda.empty_cache()
     fno_kernels(results, "jorek", device, JOREK["width"], JOREK["modes"], JOREK["nvar"],
@@ -1288,10 +1300,15 @@ def phase_scaling(results, device):
         results[("K1", window)] = dict(
             results[("K3", window)],
             ms=cuda_ms(lambda: sk._joint_cp_diff_stats(t5, p5, res)))
+        geom = sk._chunk_geom(tuple(t5.shape), res)
+        if geom["window"] != sk._chunk_window(res):
+            raise AssertionError(f"K3 {family}: the library's ring slot {geom['window']} is not "
+                                 f"the one the tap table was built for {sk._chunk_window(res)}")
         report(results, "K3", window, shape=json.dumps(list(shape)), route=route,
                k1_ms=f"{results[('K1', window)]['ms']:.4f}", k3_vs_k1_bitwise=True,
-               t_blocks_bitwise="1,2,5",
-               t_block_run=sk._chunk_t_block(5, t5.shape[1], t5.shape[2] - 2),
+               t_blocks_bitwise="1,2,5", t_block_run=geom["frames"],
+               blocks=geom["blocks"], threads_a_block=geom["threads"], smem_bytes=geom["smem"],
+               tile=f"{geom['tile'][0]}x{geom['tile'][1]}", chunks=geom["chunks"],
                qhat=f"{float(qhat):.6e}", qhat_vs_plain=f"{q_rel:.3e}",
                path_s=f"{t_path:.3f}", peak_gb=f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f}",
                launches=json.dumps(windows[window], separators=(",", ":")))
@@ -1308,9 +1325,11 @@ def phase_scaling(results, device):
         same_bits(f"K3 vs K1 {family} {list(shape)}",
                   sk._joint_cp_diff_stats(truth, pred, res)[:3],
                   sk._joint_cp_diff_stats_chunked(truth, pred, res)[:3])
+        geom = sk._chunk_geom(shape, res)
         say("route", family=family, shape=json.dumps(list(shape)),
             k1_ms=f"{cuda_ms(lambda: sk._joint_cp_diff_stats(truth, pred, res)):.4f}",
             k3_ms=f"{cuda_ms(lambda: sk._joint_cp_diff_stats_chunked(truth, pred, res)):.4f}",
+            k3_frames_a_block=geom["frames"], k3_blocks=geom["blocks"],
             k3_vs_k1_bitwise=True, routing_decision=K.routing_decision(shape))
         del truth, pred
     torch.cuda.empty_cache()
@@ -1454,8 +1473,10 @@ def phase_flat(results, device):
                 ms=cuda_ms(lambda: fk._flat_absdiff_stats_from_res(pf, r, res, ny, off)),
                 plain_ms=cuda_ms(lambda: fk._flat_absdiff_stats_from_res_plain(pf, r, res, ny,
                                                                                off)))
+            blocks, threads = fk._k10_grid(tuple(tf.shape), res, ny, off)
             report(results, "K10", key, shape=json.dumps(list(t5.shape)), off=off,
-                   route=route, two_kernel_ms=f"{two_ms:.4f}", k11_k12_vs_k10_bitwise=True,
+                   route=route, two_kernel_ms=f"{two_ms:.4f}", blocks=blocks,
+                   threads_a_block=threads, k11_k12_vs_k10_bitwise=True,
                    qhat=f"{float(qhats[name]):.6e}", qhat_vs_plain=f"{q_rel:.3e}",
                    qhat_routes_bitwise=True)
             report(results, "K11", key)
@@ -1497,7 +1518,7 @@ def main():
                     and (info.get("spill_stores") or info.get("spill_loads"))):
                 spilled.append(fn)
     if spilled:
-        raise AssertionError(f"ptxas spills registers in K1, K2 or K4-K9: {spilled}")
+        raise AssertionError(f"ptxas spills registers in K1-K10: {spilled}")
 
     device = torch.device("cuda", 0)
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()

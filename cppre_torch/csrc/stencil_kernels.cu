@@ -6,8 +6,8 @@
 // (stencil_cells.cuh): the function that evaluates one residual at one
 // output cell of one sample. K1, K2, K3 and K9 call the very same cell, so
 // the diff K9 scores is the diff K1 stores, and K3's diff, sum and sum of
-// squares are K1's. K1 and K8 take a tap table by value where its count has
-// an instance (`TapsByValue`), with the same arithmetic tap for tap.
+// squares are K1's. K1, K3 and K8 take a tap table by value where its count
+// has an instance (`TapsByValue`), with the same arithmetic tap for tap.
 //
 // Replaces the Pallas kernels of cppre/ops/pallas/stencil_kernels.py:
 //   K2  _batched_residual_fused: per sample, the interior residual,
@@ -31,8 +31,8 @@
 // flops/byte at which the card stops being bandwidth-bound. The TPU kernels
 // held one whole trajectory in VMEM; here K1 and K9 let neighbouring
 // threads read neighbouring y addresses (coalesced) and leave a tap's reuse
-// by adjacent cells to L1/L2, and K2 and K8 copy each input frame of a tile
-// into shared memory once and read its taps there.
+// by adjacent cells to L1/L2, and K2, K3 and K8 copy each input frame of a
+// tile into shared memory once and read its taps there.
 //
 // Cross-batch moments (K1, K3, K9): the TPU kernel carries sum/sumsq from
 // one grid step to the next, relying on the TPU running its grid in order.
@@ -54,16 +54,11 @@
 // K3: the TPU kernel keeps each trajectory in HBM and DMAs overlapping time
 // chunks (t_block interior frames plus a one-frame halo each side) into
 // VMEM, double-buffered, because a whole trajectory at 512^2 does not fit
-// VMEM. Here a block owns t_block interior frames of an 8 x 32 tile of the
-// interior, and walks the batch in sample order: for each sample it stages
-// the halo'd (t_block + 2) x 10 x 34 window of the variables its cell reads,
-// truth and prediction, in dynamic shared memory with cp.async, sample b + 1
-// loading while sample b computes (the TPU's two DMA slots). Each thread
-// owns one (x, y) column of the tile, t_block cells, and keeps their sums in
-// registers across the batch. The window costs (t_block + 2) / t_block x
-// 1.25 x 1.06 re-reads of each input from L2; t_block is what the caller
-// asks for, cut to what fits 227 KB of shared memory (the wrapper's
-// `_chunk_t_block`), as the TPU's is cut to fit VMEM.
+// VMEM. Here a block owns a chunk of at most t_block output frames of an
+// 8 x 32 tile and walks the batch in sample order, streaming the frames of
+// each sample's window, truth and prediction together, through a ring of
+// shared memory, one frame of the read variables at a time (see its
+// section). Its moments are K1's fold in K1's order, so its bits are K1's.
 //
 // K9: the TPU kernel stashes every diff in VMEM between its two phases. At
 // the MHD configuration's 128^2 grid the whole stash is ~114 MB, against
@@ -86,25 +81,11 @@
 #include <type_traits>
 
 #include "common.cuh"
-#include "stencil_cells.cuh"
+#include "diff_stats.cuh"
 
 namespace {
 
 constexpr size_t kMaxSmem = 232448;   // 227 KB, a block's most on sm_90
-
-// The card's SM count in *n, which sizes the grids of K1, K2, K8 and K9.
-cudaError_t sm_count(int* n) {
-    static int cached = 0;
-    if (cached == 0) {
-        int dev = 0, v = 0;
-        cudaError_t e = cudaGetDevice(&dev);
-        if (e == cudaSuccess) e = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-        if (e != cudaSuccess) return e;
-        cached = v;
-    }
-    *n = cached;
-    return cudaSuccess;
-}
 
 // ---- K2: the residual, each tile's frames staged in shared memory once -----
 // A block owns an output tile of one sample, S.tx rows of up to S.ty
@@ -172,7 +153,7 @@ __host__ __device__ constexpr ResShape res_shape(bool narrow, unsigned vars) {
     return ResShape{ty, tx, per_thread, ty + 4, tx + 2, slot, frames};
 }
 
-// The kind of a cell type (K2's cells).
+// The kind of a cell type (K2's and K3's cells).
 template <class Cell>
 struct KindOf;
 template <>
@@ -186,6 +167,14 @@ struct KindOf<Mhd<EQ>> {
 template <int EQ>
 struct KindOf<Jorek<EQ>> {
     static constexpr int value = EQ;
+};
+template <>
+struct KindOf<Taps> {
+    static constexpr int value = kTaps;
+};
+template <int N>
+struct KindOf<TapsByValue<N>> {
+    static constexpr int value = kTaps;
 };
 
 // The windows of a cell, narrow or wide, at compile time: variables vlo ..
@@ -473,306 +462,245 @@ stencil_march_kernel(const float* __restrict__ field, float* __restrict__ out, G
     }
 }
 
-// ---- K1: diff and moments ------------------------------------------------------
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-// The mean of n values from their sum, as the score epilogue forms it on
-// the card (PyTorch divides a float tensor by a scalar as a multiply by the
-// float reciprocal), and one step of a centred sum of squares, rounded
-// term by term (no contraction into an FMA), so K1 and K9 agree bit for bit.
-__device__ __forceinline__ float batch_mean(float s, int n) {
-    return __fmul_rn(s, 1.0f / (float)n);
-}
-__device__ __forceinline__ float centred_step(float acc, float d, float mean) {
-    const float c = __fsub_rn(d, mean);
-    return __fadd_rn(acc, __fmul_rn(c, c));
-}
-
-// One sample's step of the moments: s += d, then q += d * d as one fused
-// multiply-add, the rounding nvcc gave `q += d * d` in K1's first design
-// (an FFMA in its SASS) and still gives it in K3.
-__device__ __forceinline__ void fold(float& s, float& q, float d) {
-    s = __fadd_rn(s, d);
-    q = __fmaf_rn(d, d, q);
-}
-
-// A K1 block: kDiffCells consecutive cells of the (x, y) plane of one
-// output frame, each walked by `lanes` threads (1 to kDiffMaxLanes): lane l
-// of a cell takes samples b0 + l U .. b0 + l U + U - 1 of each group of
-// lanes x U samples, stores their diffs, and leaves them in shared memory,
-// where lane 0 folds the group into the cell's sums in sample order. So the
-// sums are the one-lane walk's to the bit, and a grid with few cells (wave,
-// JOREK) still fills the card. The host gives a launch as many lanes as
-// keep all its blocks resident at once (`diff_stats_lanes`): a block walks
-// the whole batch, so a second wave of blocks would double the time.
-constexpr int kDiffCells = 64;
-constexpr int kDiffMaxLanes = 4;
-
-// Samples a K1 thread has in flight (U), as timed on the card at the four
-// families' shapes and the grid-scaling shapes (PERF.md): 4 for the MHD
-// cells, JOREK continuity and the by-value table (7 taps); 2 for NS
-// momentum (4 held more registers and slowed it) and JOREK temperature (4
-// spilled); 1 for the device table. ptxas spreads a group's loads among its arithmetic as its
-// register budget allows, so a larger U is not more loads in flight.
-template <class Cell>
-struct SamplesInFlight {
-    static constexpr int value = 2;
-};
-template <int EQ>
-struct SamplesInFlight<Mhd<EQ>> {
-    static constexpr int value = 4;
-};
-template <>
-struct SamplesInFlight<Jorek<kJorekContinuity>> {
-    static constexpr int value = 4;
-};
-template <>
-struct SamplesInFlight<Taps> {
-    static constexpr int value = 1;
-};
-template <int N>
-struct SamplesInFlight<TapsByValue<N>> {
-    static constexpr int value = 4;
-};
-
-// Shared memory of a K1 block: two groups of lanes x U diffs per cell.
-size_t diff_stats_smem_bytes(int lanes, int u) {
-    return lanes > 1 ? sizeof(float) * 2 * (size_t)lanes * u * kDiffCells : 0;
-}
-
-// 1-D grid of ot x ceil(ox * oy / kDiffCells) blocks of kDiffCells x lanes
-// threads; block i holds frame i % ot, so blocks of neighbouring frames,
-// which read each other's frames, run together. A thread issues the loads
-// of its U samples' diffs, then stores them; with one lane it folds them
-// into its sums itself, in sample order. m2 (may be null) receives the
-// centred sum of squares, from a second walk in the same groups: each
-// thread's own float32 stores read back, or for a bfloat16 diff the diffs
-// recomputed from the inputs.
-template <class Cell, typename DiffT, int U>
-__global__ void __launch_bounds__(kDiffCells * kDiffMaxLanes)
-diff_stats_kernel(const float* __restrict__ truth, const float* __restrict__ pred,
-                  DiffT* __restrict__ diff, float* __restrict__ sum, float* __restrict__ sumsq,
-                  float* __restrict__ m2, int bs, int lanes, Geom g,
-                  const __grid_constant__ Cell cell) {
-    extern __shared__ float group[];   // [2][lanes * U][kDiffCells]
-    const int t = (int)(blockIdx.x % g.ot);
-    const int lc = threadIdx.x % kDiffCells, lane = threadIdx.x / kDiffCells;
-    const int i = (int)(blockIdx.x / g.ot) * kDiffCells + lc;
-    const int nplane = g.ox * g.oy;
-    // A thread past the plane's end (no early return: the lanes meet at
-    // barriers) computes the last cell and writes nothing, so no load of a
-    // group waits on a branch and the group's loads issue together.
-    const bool live = i < nplane;
-    const int ic = live ? i : nplane - 1;
-    const int x = ic / g.oy, y = ic - x * g.oy;
-    const long long ncell = (long long)g.ot * nplane;
-    const long long id = (long long)t * nplane + ic;
-    DiffT* __restrict__ dp = diff + id;
-    const auto& rc = at_row(cell, x);   // JOREK's R and 1/R of this row, once
-    auto diff_of = [&](int b) {
-        const long long off = (long long)b * g.sample;
-        return rc(truth + off, g, t, x, y) - rc(pred + off, g, t, x, y);
-    };
-    auto again = [&](int b) {
-        if constexpr (std::is_same<DiffT, float>::value) {
-            return (float)dp[(long long)b * ncell];   // a plain load of this thread's store
-        } else {
-            return diff_of(b);
-        }
-    };
-    // One group of samples b0 .. b0 + lanes U - 1 (those below bs): this
-    // thread gets its U through get(b) and hands each to keep(b, d); then
-    // the group goes to take(d) in sample order, from registers with one
-    // lane, else through shared memory to lane 0 alone. `full`: the whole
-    // group lies below bs.
-    const int gsize = lanes * U;
-    auto group_step = [&](int b0, int buf, auto full, auto get, auto keep, auto take) {
-        constexpr bool kFull = decltype(full)::value;
-        const int first = b0 + lane * U;
-        float d[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) d[u] = kFull || first + u < bs ? get(first + u) : 0.0f;
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-            if (kFull || first + u < bs) {
-                if (live) keep(first + u, d[u]);
-                if (lanes == 1) take(d[u]);
-            }
-        }
-        if (lanes == 1) return;
-        float* mine = group + (buf * gsize + lane * U) * kDiffCells + lc;
-#pragma unroll
-        for (int u = 0; u < U; ++u) mine[u * kDiffCells] = d[u];
-        __syncthreads();
-        if (lane == 0) {
-            const float* all = group + buf * gsize * kDiffCells + lc;
-            const int n = min(gsize, bs - b0);
-            for (int j = 0; j < n; ++j) take(all[j * kDiffCells]);
-        }
-    };
-    auto walk = [&](auto get, auto keep, auto take) {
-        int b0 = 0, buf = 0;
-        for (; b0 + gsize <= bs; b0 += gsize, buf ^= 1) {
-            group_step(b0, buf, std::true_type{}, get, keep, take);
-        }
-        if (b0 < bs) group_step(b0, buf, std::false_type{}, get, keep, take);
-    };
-
-    float s = 0.0f, q = 0.0f;
-    walk(diff_of, [&](int b, float d) { store(dp + (long long)b * ncell, d); },
-         [&](float d) { fold(s, q, d); });
-    if (lane == 0 && live) {
-        sum[id] = s;
-        sumsq[id] = q;
-    }
-    if (m2 == nullptr) return;   // uniform: every lane leaves
-
-    // the mean to every lane, through the first group slot (its last reader,
-    // lane 0's fold, finished before the barrier below)
-    float mean = batch_mean(s, bs);
-    if (lanes > 1) {
-        __syncthreads();
-        if (lane == 0) group[lc] = mean;
-        __syncthreads();
-        mean = group[lc];
-        __syncthreads();
-    }
-    float acc = 0.0f;
-    walk(again, [](int, float) {}, [&](float d) { acc = centred_step(acc, d, mean); });
-    if (lane == 0 && live) m2[id] = acc;
-}
-
 // ---- K3: diff and moments, time-chunked through shared memory --------------
-constexpr int kChunkTX = 8;                          // interior rows (x) of a tile
-constexpr int kChunkTY = 32;                         // interior columns (y) of a tile
-constexpr int kChunkThreads = kChunkTX * kChunkTY;   // one (x, y) column per thread
-constexpr int kChunkMaxTb = 8;                       // frames a thread keeps sums for
-constexpr int kWinX = kChunkTX + 2, kWinY = kChunkTY + 2, kWinPlane = kWinX * kWinY;
+// A block owns an output tile of kChunkTX x kChunkTY cells and a chunk of tc
+// output frames (at most the caller's t_block), and walks the whole batch in
+// sample order, as K1's threads do: each thread owns one column of the tile
+// and one row, so one cell of each of the tc frames, and keeps its tc sums
+// and sums of squares in registers, folded in sample order (`fold`, K1's
+// rounding). Each sample's window, tc + 2 frames of the tile and its halo,
+// streams through shared memory one frame at a time, kChunkAhead frames
+// ahead of the one computed; a frame slot holds the truth's and the
+// prediction's frame of every variable from the first to the last one the
+// cell reads (`ChunkWindow`), copied once with cp.async. Each step (one
+// barrier) computes the output frame whose last input frame just landed,
+// truth and prediction together, d = cell(truth) - cell(pred) as K1 forms
+// it: the cell, its arithmetic and the batch order are K1's, so are the
+// bits.
+//
+// The ring holds m windows of tc + 2 slots (m = 1, or 2 where a window is
+// too short to keep kChunkAhead frames in flight, `chunk_windows`; each
+// block counts its own, the last chunk's window may be shorter): sample b's
+// window takes slots (b % m)(tc + 2) onwards, so it never wraps and every
+// cell finds its time neighbours at +-slot from its centre; its strides are
+// compile-time constants (as K2's are), so every tap is an immediate offset.
+// A slot is refilled only after its frame's last reader (the output frame
+// two steps on) has passed the barrier before the refill.
+//
+// Why this shape (H100; PERF.md): a first design streamed the truth's
+// window, then the prediction's, each through half the shared memory (2.8
+// steps an output cell-sample at tc = 5, 0.98 ms at the grid-scaling NS
+// shape); a ring of frames 3 ahead, with the two frames its wrap reads
+// copied twice, took 1.19 ms there. A ring of whole sample windows of both
+// tensors (the TPU kernel's double buffer) would hold 2 x 3 x 7 frames of
+// the NS cell, 121 KB at tc = 5, one block an SM. One window of both
+// tensors is 60 KB at tc = 5: three blocks an SM, 1.4 steps an output
+// cell-sample.
+//
+// Per input value, shared memory takes (tc + 2) / tc x 10 / 8 x 36 / 32
+// copies (16-byte copies; 34 / 32 with 4-byte ones): 1.97x at tc = 5,
+// against the ~4.3 row reads a K1 block's taps make of each value through
+// L1 and L2. The frames a block takes are chosen in C (`chunk_geom`) for
+// the fewest frame steps on the card's SMs, so a small plane (JOREK's 32 x
+// 32) takes one output frame a block and 38 chunks of its 4 tiles.
+constexpr int kChunkTX = 8;                          // output rows of a tile
+constexpr int kChunkTY = 32;                         // output columns of a tile
+constexpr int kChunkThreads = kChunkTX * kChunkTY;   // one cell of each frame a thread
+constexpr int kChunkRows = kChunkTX + 2;             // a window frame: rows ...
+constexpr int kChunkRW = kChunkTY + 4;               // ... of rw floats, a multiple of 4
+constexpr int kChunkFrame = kChunkRows * kChunkRW;   // one variable's frame, floats
+constexpr int kChunkMaxTb = 8;                       // output frames a block may take
+constexpr int kChunkAhead = 2;                       // frames in flight ahead of the computed one
 
-// Dynamic shared memory of K3: 2 slots (double buffer) x 2 tensors (truth,
-// prediction) x nvar variables x (tb + 2) frames of the window.
-size_t chunk_smem_bytes(int nvar, int tb) {
-    return sizeof(float) * 4 * (size_t)nvar * (size_t)(tb + 2) * kWinPlane;
+// Windows of tc + 2 frames a ring holds: enough that kChunkAhead frames
+// load while the three an output frame reads stay put.
+__host__ __device__ constexpr int chunk_windows(int tc) {
+    return (kChunkAhead + 3 + tc + 1) / (tc + 2);
 }
+// Frame slots of the ring of a block taking tc output frames.
+__host__ __device__ constexpr int chunk_slots(int tc) { return chunk_windows(tc) * (tc + 2); }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+// A cell's window at compile time: variables vlo .. vlo + nwin - 1, each a
+// kChunkFrame, the truth's then the prediction's, so a slot (one frame of
+// both) is the time stride; and the blocks an SM holds by registers (three,
+// two for the cells whose two residuals in flight outgrow a third of the
+// SM's registers: ptxas spilled them at three).
+template <class Cell>
+struct ChunkWindow {
+    static constexpr unsigned vars = cell_vars(KindOf<Cell>::value);
+    static constexpr int vlo = lowest_var(vars);
+    static constexpr int nwin = res_windows(vars);
+    static constexpr int tensor = nwin * kChunkFrame;   // one tensor's frame
+    static constexpr int slot = 2 * tensor;
+    static constexpr int per_sm = KindOf<Cell>::value == kContinuity
+                                  || KindOf<Cell>::value == kEnergy ? 2 : 3;
+};
 
-// Issue the copies of one sample's window: the variables in `vars`, frames
-// t0 .. t0 + nf - 1, rows x0 .. x0 + kWinX - 1 and columns y0 .. y0 + kWinY - 1
-// of the [nvar, nt, nx, ny] sample at src, into the window at w (variable v
-// at v * wfield). Positions past the grid's edge stay unset: only cells
-// outside the interior, whose results are dropped, read them.
-__device__ __forceinline__ void stage_window(float* w, long long wfield, const float* src,
-                                             const Geom& g, unsigned vars, int nvar, int t0,
-                                             int nf, int x0, int y0) {
-    const int n = nf * kWinPlane;
-    for (int v = 0; v < nvar; ++v) {
-        if (!((vars >> v) & 1u)) continue;
-        const float* s = src + v * g.field + (long long)t0 * g.plane;
-        float* d = w + v * wfield;
-        for (int i = threadIdx.x; i < n; i += blockDim.x) {
-            const int f = i / kWinPlane, r = i - f * kWinPlane;
-            const int wx = r / kWinY, wy = r - wx * kWinY;
-            const int gx = x0 + wx, gy = y0 + wy;
-            if (gx < g.nx && gy < g.ny) {
-                cp_async4(d + i, s + (long long)f * g.plane + (long long)gx * g.ny + gy);
-            }
+struct ChunkGeom {
+    int tiles_x, tiles_y;   // tiles of the output plane
+    int tc, chunks;         // output frames a block takes, chunks of ot
+    int slots;              // the largest ring a block of the launch keeps
+    int per_sm;             // blocks an SM holds (shared memory, registers)
+    long long blocks;
+    size_t smem;
+};
+
+// K3's geometry for g, a cell with nwin windows of which an SM holds at
+// most `per_sm` blocks by registers, the caller's t_block, on a card of
+// `sms` SMs (blocks = 0: nothing to run). tc in 1 .. min(t_block,
+// kChunkMaxTb, ot) takes the fewest steps on the card: its blocks' frames,
+// (tc + 2) a sample, times the waves of blocks the SMs hold at once (by
+// registers and by the shared memory of the larger of its chunks' rings,
+// the full ones' and the last one's); ties go to the larger tc, which reads
+// fewer halo frames.
+ChunkGeom chunk_geom(int t_block, const Geom& g, int nwin, int per_sm, int sms) {
+    ChunkGeom best{};
+    if (t_block < 1 || g.ot < 1 || g.ox < 1 || g.oy < 1 || nwin < 1) return best;
+    const int tiles_x = (g.ox + kChunkTX - 1) / kChunkTX;
+    const int tiles_y = (g.oy + kChunkTY - 1) / kChunkTY;
+    const long long tiles = (long long)tiles_x * tiles_y;
+    long long fewest = -1;
+    for (int tc = std::min(std::min(t_block, kChunkMaxTb), g.ot); tc >= 1; --tc) {
+        const int chunks = (g.ot + tc - 1) / tc, last = g.ot - (chunks - 1) * tc;
+        const int slots = std::max(chunk_slots(tc), chunk_slots(last));
+        const size_t smem = sizeof(float) * 2 * (size_t)nwin * kChunkFrame * slots;
+        const int on_sm = std::min<int>(per_sm, (int)(233472 / (smem + 1024)));
+        if (smem > kMaxSmem || on_sm < 1) continue;
+        const long long blocks = tiles * chunks, wave = (long long)on_sm * sms;
+        const long long steps = (tc + 2LL) * ((blocks + wave - 1) / wave);
+        if (fewest < 0 || steps < fewest) {
+            fewest = steps;
+            best = ChunkGeom{tiles_x, tiles_y, tc, chunks, slots, on_sm, blocks, smem};
         }
     }
+    return best;
 }
 
-// grid (ceil(oy / kChunkTY), ceil(ox / kChunkTX), ceil(ot / tb)) of
-// kChunkThreads threads. Block (by, bx, bz) owns the interior cells
-// (t0 + k, x0 + lx, y0 + ly), t0 = bz * tb, k < tb_c; thread (lx, ly) owns
-// one column of them. Sample b + 1's window loads while sample b computes.
-// m2 (may be null) receives the centred sum of squares.
+// The cell a thread of a window that starts at input row x0 calls for its
+// row lx: JOREK's bound to that row's R and 1/R, read and divided once (the
+// R table moves with the window); any other the kernel's own parameter.
 template <class Cell>
-__global__ void __launch_bounds__(kChunkThreads)
+__device__ __forceinline__ const Cell& window_row_cell(const Cell& c, int, int) {
+    return c;
+}
+template <int EQ>
+__device__ __forceinline__ JorekRow<EQ> window_row_cell(const Jorek<EQ>& c, int x0, int lx) {
+    return at_row(at_rows(c, x0), lx);
+}
+
+// 1-D grid of m.blocks of kChunkThreads: block i is chunk i % chunks of
+// tile i / chunks, so the chunks of a tile, which read each other's halo
+// frames, run together. vec: 16-byte copies (ny % 4 == 0, aligned fields).
+// m2 (may be null) receives the centred sum of squares, from each thread's
+// own diff stores read back, as K1 forms it.
+template <class Cell>
+__global__ void __launch_bounds__(kChunkThreads, ChunkWindow<Cell>::per_sm)
 diff_stats_chunked_kernel(const float* __restrict__ truth, const float* __restrict__ pred,
-                          float* diff, float* __restrict__ sum, float* __restrict__ sumsq,
-                          float* __restrict__ m2, int bs, Geom g, Cell cell, int tb,
-                          unsigned vars, int nvar) {
-    extern __shared__ float smem[];
-    const int y0 = blockIdx.x * kChunkTY, x0 = blockIdx.y * kChunkTX, t0 = blockIdx.z * tb;
-    const int tb_c = min(tb, g.ot - t0);
-    const int lx = threadIdx.x / kChunkTY, ly = threadIdx.x % kChunkTY;
+                          float* __restrict__ diff, float* __restrict__ sum,
+                          float* __restrict__ sumsq, float* __restrict__ m2, int bs, Geom g,
+                          ChunkGeom m, int vec, const __grid_constant__ Cell cell) {
+    using W = ChunkWindow<Cell>;
+    extern __shared__ __align__(16) float ring[];
+    const int chunk = (int)(blockIdx.x % m.chunks), tile = (int)(blockIdx.x / m.chunks);
+    const int x0 = (tile / m.tiles_y) * kChunkTX, y0 = (tile % m.tiles_y) * kChunkTY;
+    const int t0 = chunk * m.tc;
+    const int tc = min(m.tc, g.ot - t0), nf = tc + 2;   // output frames, frames a window
+    const int windows = chunk_windows(tc);                // this block's ring
+    // the part of a frame inside the grid; the rest of a slot stays unset and
+    // feeds only cells past the grid's edge, which store nothing
+    const int wrows = min(kChunkRows, g.nx - x0), wcols = min(kChunkTY + 2, g.ny - y0);
+    // copies: threads 0-127 the truth's, 128-255 the prediction's; a thread
+    // takes one 16-byte (or 4-byte) column of every `step`-th row of each
+    // variable's frame
+    const int half = threadIdx.x / (kChunkThreads / 2), ct = threadIdx.x % (kChunkThreads / 2);
+    const int ncol = vec ? (wcols + 3) / 4 : wcols;
+    const int crow = ct / ncol, ccol = ct - crow * ncol;
+    const int step = (kChunkThreads / 2) / ncol;
+    const int width = vec ? 4 : 1;
+    const float* __restrict__ src0 = (half ? pred : truth) + (long long)t0 * g.plane
+                                     + (long long)(x0 + crow) * g.ny + y0 + width * ccol;
+    float* const dst0 = ring + half * W::tensor + crow * kChunkRW + width * ccol;
+
+    // frame f of sample b into its slot
+    auto load = [&](int b, int f) {
+        if (b >= bs || crow >= step) return;
+        const float* s = src0 + (long long)b * g.sample + (long long)f * g.plane;
+        float* d = dst0 + ((b % windows) * nf + f) * W::slot;
+#pragma unroll
+        for (int v = W::vlo; v < W::vlo + W::nwin; ++v) {
+            if (!((W::vars >> v) & 1u)) continue;
+            const float* sv = s + v * g.field;
+            float* dv = d + (v - W::vlo) * kChunkFrame;
+            for (int r = 0; crow + r < wrows; r += step) {
+                if (vec) {
+                    copy_async16(dv + r * kChunkRW, sv + (long long)r * g.ny, true);
+                } else {
+                    copy_async4(dv + r * kChunkRW, sv + (long long)r * g.ny, true);
+                }
+            }
+        }
+    };
+    // the stream's next frame to load: frame lf of sample lb
+    int lb = 0, lf = 0;
+    auto load_next = [&]() {
+        load(lb, lf);
+        copy_async_commit();
+        if (++lf == nf) {
+            lf = 0;
+            ++lb;
+        }
+    };
+    for (int a = 0; a < kChunkAhead; ++a) load_next();
+
+    // the window's strides, as the cell reads them: a slot a frame, a
+    // kChunkFrame a variable, kChunkRW a row; all compile-time constants
+    Geom w = g;
+    w.nx = kChunkRows;
+    w.ny = kChunkRW;
+    w.plane = W::slot;
+    w.field = kChunkFrame;
+    const int ly = threadIdx.x % kChunkTY, lx = threadIdx.x / kChunkTY;
     const int x = x0 + lx, y = y0 + ly;
     const bool live = x < g.ox && y < g.oy;
+    const auto& rc = window_row_cell(cell, x0, live ? lx : 0);
     const long long ncell = (long long)g.ot * g.ox * g.oy;
-    // window row lx is input row x0 + lx (JOREK's R table moves with it)
-    const Cell wcell = at_rows(cell, x0);
-
-    // the window's strides, as the cell reads them: one slot of tb + 2
-    // frames per variable; (slot s, tensor k) at smem + (2 s + k) w.sample
-    Geom w = g;
-    w.ny = kWinY;
-    w.plane = kWinPlane;
-    w.field = (long long)(tb + 2) * kWinPlane;
-    w.sample = (long long)nvar * w.field;
-
-    auto stage = [&](int b, int slot) {
-        const long long off = (long long)b * g.sample;
-        float* base = smem + 2 * slot * w.sample;
-        stage_window(base, w.field, truth + off, g, vars, nvar, t0, tb_c + 2, x0, y0);
-        stage_window(base + w.sample, w.field, pred + off, g, vars, nvar, t0, tb_c + 2, x0, y0);
-        cp_async_commit();
-    };
+    const long long id0 = ((long long)t0 * g.ox + x) * g.oy + y;   // cell of output frame t0
+    const long long fstride = (long long)g.ox * g.oy;
 
     float s[kChunkMaxTb], q[kChunkMaxTb];
 #pragma unroll
     for (int k = 0; k < kChunkMaxTb; ++k) s[k] = q[k] = 0.0f;
-
-    stage(0, 0);
     for (int b = 0; b < bs; ++b) {
-        const int slot = b & 1;
-        if (b + 1 < bs) {
-            stage(b + 1, slot ^ 1);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
-        if (live) {
-            const float* wt = smem + 2 * slot * w.sample;
-            const float* wp = wt + w.sample;
+        const float* base = ring + (b % windows) * nf * W::slot - W::vlo * kChunkFrame;
 #pragma unroll
-            for (int k = 0; k < kChunkMaxTb; ++k) {
-                if (k < tb_c) {
-                    const float d = wcell(wt, w, k, lx, ly, FromShared())
-                                    - wcell(wp, w, k, lx, ly, FromShared());
-                    diff[(long long)b * ncell + ((long long)(t0 + k) * g.ox + x) * g.oy + y] = d;
-                    s[k] += d;
-                    q[k] += d * d;
-                }
-            }
+        for (int f = 0; f < kChunkMaxTb + 2; ++f) {
+            if (f >= nf) break;
+            // frame f has landed, everyone's; every thread is done with the
+            // frame the next load replaces
+            copy_async_wait<kChunkAhead - 1>();
+            __syncthreads();
+            load_next();
+            if (f < 2) continue;
+            const int j = f - 2;   // the output frame whose last frame is f
+            const float d = rc(base, w, j, lx, ly, FromShared())
+                            - rc(base + W::tensor, w, j, lx, ly, FromShared());
+            if (live) diff[(long long)b * ncell + id0 + j * fstride] = d;
+            fold(s[j], q[j], d);
         }
-        __syncthreads();  // every read of this slot is done before it is refilled
     }
     if (!live) return;
 #pragma unroll
-    for (int k = 0; k < kChunkMaxTb; ++k) {
-        if (k < tb_c) {
-            const long long id = ((long long)(t0 + k) * g.ox + x) * g.oy + y;
-            sum[id] = s[k];
-            sumsq[id] = q[k];
-            if (m2 != nullptr) {
-                // this thread's own stores, read back (plain loads), as K1 does
-                const float mean = batch_mean(s[k], bs);
-                float acc = 0.0f;
-                for (int b = 0; b < bs; ++b) acc = centred_step(acc, diff[(long long)b * ncell + id], mean);
-                m2[id] = acc;
-            }
+    for (int j = 0; j < kChunkMaxTb; ++j) {
+        if (j >= tc) break;
+        const long long id = id0 + j * fstride;
+        sum[id] = s[j];
+        sumsq[id] = q[j];
+        if (m2 != nullptr) {
+            // this thread's own stores, read back (plain loads), as K1 does
+            const float mean = batch_mean(s[j], bs);
+            float acc = 0.0f;
+            for (int b = 0; b < bs; ++b) acc = centred_step(acc, diff[(long long)b * ncell + id], mean);
+            m2[id] = acc;
         }
     }
 }
@@ -978,28 +906,6 @@ struct ResidualLaunch {
     }
 };
 
-// K1's grid: ot x ceil(ox * oy / kDiffCells) blocks.
-long long diff_stats_blocks(const Geom& g) {
-    return (long long)g.ot * (((long long)g.ox * g.oy + kDiffCells - 1) / kDiffCells);
-}
-
-// The most lanes (kDiffMaxLanes down to 2) at which every one of `blocks`
-// blocks of `kernel` is resident at once on a card of `sms` SMs, else 1.
-template <int U, class Kernel>
-int diff_stats_lanes(Kernel kernel, long long blocks, int sms) {
-    static int per_sm[kDiffMaxLanes + 1] = {};   // blocks an SM holds, by lanes
-    for (int lanes = kDiffMaxLanes; lanes > 1; --lanes) {
-        if (per_sm[lanes] == 0
-            && cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &per_sm[lanes], kernel, kDiffCells * lanes,
-                   diff_stats_smem_bytes(lanes, U)) != cudaSuccess) {
-            per_sm[lanes] = -1;
-        }
-        if (blocks <= (long long)per_sm[lanes] * sms) return lanes;
-    }
-    return 1;
-}
-
 // The kernel, blocks and lanes K1 launches for a cell; `launch` false only
 // reports them (grid[0] blocks, grid[1] threads a block).
 struct DiffStatsLaunch {
@@ -1069,6 +975,12 @@ struct MarchLaunch {
     }
 };
 
+// K3's launch for a cell; with `geom` set it only reports it: blocks,
+// threads a block, shared bytes, the tile's rows and columns, the output
+// frames a block takes, the chunks of ot, the variables with a window, a
+// ring slot's rows (both tensors' frames of each windowed variable) and row
+// length (the strides its tap table is built for), the largest ring's slots
+// and the blocks an SM holds.
 struct ChunkedLaunch {
     const float* truth;
     const float* pred;
@@ -1078,21 +990,34 @@ struct ChunkedLaunch {
     float* m2;
     int bs;
     Geom g;
-    int tb;
-    unsigned vars;
-    int nvar;
+    int t_block;
     cudaStream_t stream;
+    long long* geom = nullptr;
 
     template <class Cell>
     int operator()(const Cell& cell) const {
-        const size_t bytes = chunk_smem_bytes(nvar, tb);
-        if (tb < 1 || tb > kChunkMaxTb || bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-        const cudaError_t e = allow_smem(diff_stats_chunked_kernel<Cell>, bytes);
+        using W = ChunkWindow<Cell>;
+        int sms = 0;
+        cudaError_t e = sm_count(&sms);
         if (e != cudaSuccess) return (int)e;
-        const dim3 grid((g.oy + kChunkTY - 1) / kChunkTY, (g.ox + kChunkTX - 1) / kChunkTX,
-                        (g.ot + tb - 1) / tb);
-        diff_stats_chunked_kernel<Cell><<<grid, kChunkThreads, bytes, stream>>>(
-            truth, pred, diff, sum, sumsq, m2, bs, g, cell, tb, vars, nvar);
+        const ChunkGeom m = chunk_geom(t_block, g, W::nwin, W::per_sm, sms);
+        if (bs < 1 || m.blocks < 1 || m.blocks > 0x7fffffffLL || m.smem > kMaxSmem) {
+            return (int)cudaErrorInvalidValue;
+        }
+        if (geom != nullptr) {
+            const long long r[12] = {m.blocks,  kChunkThreads, (long long)m.smem, kChunkTX,
+                                     kChunkTY,  m.tc,          m.chunks,          W::nwin,
+                                     W::slot / kChunkRW, kChunkRW, m.slots,       m.per_sm};
+            std::copy(r, r + 12, geom);
+            return (int)cudaSuccess;
+        }
+        const auto kernel = diff_stats_chunked_kernel<Cell>;
+        e = allow_smem(kernel, m.smem);
+        if (e != cudaSuccess) return (int)e;
+        const int vec = g.ny % 4 == 0 && reinterpret_cast<uintptr_t>(truth) % 16 == 0
+                        && reinterpret_cast<uintptr_t>(pred) % 16 == 0;
+        kernel<<<(unsigned)m.blocks, kChunkThreads, m.smem, stream>>>(
+            truth, pred, diff, sum, sumsq, m2, bs, g, m, vec, cell);
         return (int)cudaGetLastError();
     }
 };
@@ -1292,23 +1217,44 @@ CPPRE_EXPORT int cppre_joint_cp_diff_stats_grid(int kind, int diff_bf16, int nva
     return with_cell_by_value<true>(a, launch);
 }
 
-// K3 for 3-wide cells (kinds 0-8; a tap table built for the window's
-// strides, frames of 10 x 34; JOREK's rows table for the input grid).
-// t_block: interior frames per chunk, 1..8, such that the window fits
-// shared memory. m2 may be null.
+// K3 for 3-wide cells (kinds 0-8; a tap table built for the strides of a
+// ring slot, which cppre_joint_cp_diff_stats_chunked_geom gives, by value
+// from host_off / host_w where its count has an instance; JOREK's rows
+// table for the input grid). t_block >= 1 bounds the output frames a block
+// takes. m2 may be null.
 CPPRE_EXPORT int cppre_joint_cp_diff_stats_chunked(int kind, const void* truth, const void* pred,
                                                    void* diff, void* sum, void* sumsq, void* m2,
                                                    int bs, int nvar, int nt, int nx, int ny,
                                                    int t_block, float cxy, float cty, float ctx,
                                                    float nu, float dt, const void* tap_off,
                                                    const void* tap_w, int ntaps, const void* rows,
-                                                   float dc, float kc, void* stream) {
-    const CellArgs a{kind, cxy, cty, ctx, nu, dt, tap_off, tap_w, ntaps, rows, dc, kc};
-    const unsigned vars = nvar >= 32 ? cell_vars(kind) : cell_vars(kind) & ((1u << nvar) - 1u);
-    return with_cell<true>(a, ChunkedLaunch{(const float*)truth, (const float*)pred, (float*)diff,
-                                      (float*)sum, (float*)sumsq, (float*)m2, bs,
-                                      make_geom(nvar, nt, nx, ny, 3), t_block, vars, nvar,
-                                      (cudaStream_t)stream});
+                                                   float dc, float kc, const void* host_off,
+                                                   const void* host_w, void* stream) {
+    if (nt < 3 || nx < 3 || ny < 3 || (nvar < 32 && (cell_vars(kind) >> nvar) != 0u)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    CellArgs a{kind, cxy, cty, ctx, nu, dt, tap_off, tap_w, ntaps, rows, dc, kc};
+    a.host_off = (const int*)host_off;
+    a.host_w = (const float*)host_w;
+    return with_cell_by_value<true>(a, ChunkedLaunch{(const float*)truth, (const float*)pred,
+                                                     (float*)diff, (float*)sum, (float*)sumsq,
+                                                     (float*)m2, bs, make_geom(nvar, nt, nx, ny, 3),
+                                                     t_block, (cudaStream_t)stream});
+}
+
+// K3's launch for the arguments of cppre_joint_cp_diff_stats_chunked on this
+// card (no data pointers are read): geom[0..11] as `ChunkedLaunch` reports it.
+CPPRE_EXPORT int cppre_joint_cp_diff_stats_chunked_geom(int kind, int bs, int nvar, int nt, int nx,
+                                                        int ny, int t_block, long long* geom) {
+    if (nt < 3 || nx < 3 || ny < 3 || (nvar < 32 && (cell_vars(kind) >> nvar) != 0u)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    static const int table[kByValueTaps] = {};   // only the instance is chosen from it
+    CellArgs a{kind, 0.f, 0.f, 0.f, 0.f, 0.f, table, table, 1, table, 0.f, 0.f};
+    ChunkedLaunch launch{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, bs,
+                         make_geom(nvar, nt, nx, ny, 3), t_block, nullptr};
+    launch.geom = geom;
+    return with_cell_by_value<true>(a, launch);
 }
 
 // scores: the bits of sample b's score at scores[b * score_stride], zeroed

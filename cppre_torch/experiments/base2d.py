@@ -4,11 +4,14 @@
 `run_2d_cp` trains the FNO surrogate in-script (or takes a state dict in
 `params` to skip training), rolls the calibration and prediction samples
 out in ONE batched call, takes the residuals of truth and prediction, and
-runs joint or marginal conformal calibration with the alpha sweep. The
-training runs kernels K4/K5 forward and K6/K7 backward
-(`models.fused.make_fused_train_apply`), the rollouts K4/K5
-(`make_fused_apply`); on the CPU the kernels' plain versions. Everything
-runs on `device`, the card unless the caller asks for the CPU.
+runs joint or marginal conformal calibration with the alpha sweep. With
+`fused_train` (the default) the training runs kernels K4/K5 forward and
+K6/K7 backward (`models.fused.make_fused_train_apply`), else plain autograd
+through `FNO2d`; with `fused_forward` (the default) the rollouts run K4/K5
+(`make_fused_apply`), else `FNO2d`'s own forward, cppre's default route.
+The keywords are cppre's; the port defaults to the kernels. On the CPU the
+kernels take their plain versions. Everything runs on `device`, the card
+unless the caller asks for the CPU.
 
 Not ported yet, and refused with NotImplementedError rather than run some
 other way: `mesh=` (the parallel layer), `train_precision` other than
@@ -41,8 +44,8 @@ def _to_convops(field):
 
 def run_2d_cp(*, data, residual_fn: Callable, cfg: dict, mode: str = "joint", params=None,
               seed: int = 0, eps: float = 0.0, verbose: bool = True,
-              return_residuals: bool = False, mesh=None, train_precision: str = "highest",
-              device="cuda"):
+              return_residuals: bool = False, mesh=None, fused_forward: bool = True,
+              fused_train: bool = True, train_precision: str = "highest", device="cuda"):
     """data [Nsim, Nvar, Nx, Ny, Nt] full trajectories; residual_fn maps
     [BS, Nvar, Nt, Nx, Ny] to a residual. `params` is a state dict of the
     port's `FNO2d` (e.g. from `utils.fno2d_from_jax`), which skips training.
@@ -78,9 +81,10 @@ def run_2d_cp(*, data, residual_fn: Callable, cfg: dict, mode: str = "joint", pa
         if n_train <= 0:
             raise ValueError("params not given and n_train == 0")
         tr_a, tr_u = a_enc[:n_train], u_enc[:n_train]
-        # every forward leg (remat recompute included) runs K4/K5, the
-        # backward K6/K7
-        _, train_losses = fit(make_fused_train_apply(model), model, tr_a, tr_u, tr_a[-5:],
+        # fused: every forward leg (remat recompute included) runs K4/K5,
+        # the backward K6/K7
+        train_apply = make_fused_train_apply(model) if fused_train else model
+        _, train_losses = fit(train_apply, model, tr_a, tr_u, tr_a[-5:],
                               tr_u[-5:], epochs=cfg["Epochs"], batch_size=cfg["Batch Size"],
                               step=step, T_out=T_out, loss_func=lp_loss,
                               lr=cfg["Learning Rate"], scheduler_step=cfg["Scheduler Step"],
@@ -90,7 +94,7 @@ def run_2d_cp(*, data, residual_fn: Callable, cfg: dict, mode: str = "joint", pa
         model.load_state_dict(params)
     train_time = time.perf_counter() - t0
     model.eval()
-    apply_fn = make_fused_apply(model)
+    apply_fn = make_fused_apply(model) if fused_forward else model
 
     # Calibration and prediction samples come from the tail of the data and
     # are rolled out in ONE batched call, split after: identical numerics

@@ -7,10 +7,12 @@ Port of `cppre.models.fused`.
   and the projection head by kernel K5 (`projection2d_fused`). The lift,
   the skip adds, the transposes and the bias branch b(grid) stay plain
   torch, as they stay XLA in JAX. Inference only (no autograd).
-* `make_fused_train_apply(model)` returns a differentiable `apply_fn(x)`:
-  the same chain, each block a `torch.autograd.Function` with K4 forward
-  and K6 backward, the head one with K5 forward and K7 backward. The bias
-  branch runs differentiably outside the Function and receives dx3.
+* `make_fused_train_apply(model, bwd_impl="pallas")` returns a
+  differentiable `apply_fn(x)`: the same chain, each block a
+  `torch.autograd.Function` with K4 forward and K6 backward, the head one
+  with K5 forward and K7 backward (`bwd_impl="xla"`: autograd of the plain
+  block and head math in place of K6 and K7, as in cppre). The bias branch
+  runs differentiably outside the Function and receives dx3.
 
 The output of a sample does not depend on the batch it is evaluated in:
 K4 and K5 work per sample in a fixed order, the skip adds are elementwise,
@@ -30,9 +32,11 @@ from ..ops.kernels import _build
 from ..ops.kernels.fno_block import (
     _unpack_spectral,
     fno_block2d_bwd_fused,
+    fno_block2d_bwd_plain,
     fno_block2d_fused,
     fno_kernel_limits,
     projection2d_bwd_fused,
+    projection2d_bwd_plain,
     projection2d_fused,
 )
 from .fno import FNO2d, get_grid
@@ -134,60 +138,73 @@ def _block_params(block):
             block.w.bias)
 
 
+# the backward of each block and of the head, by `make_fused_train_apply`'s
+# bwd_impl: the kernels K6 and K7, or autograd of the plain math
+_BLOCK_BWD = {"pallas": fno_block2d_bwd_fused, "xla": fno_block2d_bwd_plain}
+_HEAD_BWD = {"pallas": projection2d_bwd_fused, "xla": projection2d_bwd_plain}
+
+
 class _FusedBlock(torch.autograd.Function):
-    """One Fourier block: forward K4, backward K6. The parameters are
-    inputs so that autograd hands them their gradients; both passes read
-    them from `block` itself, which the optimizer changes only after the
-    backward."""
+    """One Fourier block: forward K4, backward K6 (or autograd of the block
+    math, `bwd_impl` 'xla'). The parameters are inputs so that autograd
+    hands them their gradients; both passes read them from `block` itself,
+    which the optimizer changes only after the backward."""
 
     @staticmethod
-    def forward(ctx, z, x3, block, m1, m2, *params):
+    def forward(ctx, z, x3, block, m1, m2, bwd_impl, *params):
         ctx.save_for_backward(z, x3)
-        ctx.block, ctx.modes = block, (m1, m2)
+        ctx.block, ctx.modes, ctx.bwd_impl = block, (m1, m2), bwd_impl
         return fno_block2d_fused(z, block, x3, m1, m2)
 
     @staticmethod
     def backward(ctx, g):
         z, x3 = ctx.saved_tensors
         m1, m2 = ctx.modes
-        dx, dwr, dwi, da1, db1, da2, db2, daw, dbw, dx3 = fno_block2d_bwd_fused(
+        dx, dwr, dwi, da1, db1, da2, db2, daw, dbw, dx3 = _BLOCK_BWD[ctx.bwd_impl](
             z, g.contiguous(), ctx.block, x3, m1, m2)
         dw1, dw2 = _unpack_spectral(dwr, dwi, m1)
         shape = ctx.block.w.weight.shape                        # [W, W, 1, 1, 1]
-        return (dx, dx3, None, None, None, dw1, dw2, da1.reshape(shape), db1,
+        return (dx, dx3, None, None, None, None, dw1, dw2, da1.reshape(shape), db1,
                 da2.reshape(shape), db2, daw.reshape(shape), dbw)
 
 
 class _FusedProjection(torch.autograd.Function):
-    """The projection head: forward K5, backward K7."""
+    """The projection head: forward K5, backward K7 (or autograd of the
+    head's math, `bwd_impl` 'xla')."""
 
     @staticmethod
-    def forward(ctx, z, fc1, fc2, *params):
+    def forward(ctx, z, fc1, fc2, bwd_impl, *params):
         ctx.save_for_backward(z)
-        ctx.fcs = (fc1, fc2)
+        ctx.fcs, ctx.bwd_impl = (fc1, fc2), bwd_impl
         return projection2d_fused(z, fc1, fc2)
 
     @staticmethod
     def backward(ctx, g):
         (z,) = ctx.saved_tensors
-        dz, da1, db1, da2, db2 = projection2d_bwd_fused(z, g.contiguous(), *ctx.fcs)
-        return dz, None, None, da1, db1, da2, db2
+        dz, da1, db1, da2, db2 = _HEAD_BWD[ctx.bwd_impl](z, g.contiguous(), *ctx.fcs)
+        return dz, None, None, None, da1, db1, da2, db2
 
 
-def make_fused_train_apply(model: FNO2d):
+def make_fused_train_apply(model: FNO2d, bwd_impl: str = "pallas"):
     """A differentiable `apply_fn(x)` over the kernels, for `train.loops`:
     every block forward (including the recompute of a checkpointed step)
-    runs K4 and the head K5, the backward K6 and K7 (their plain versions
-    on a CPU tensor). On a CUDA tensor a shape the kernels do not take
-    raises ValueError."""
+    runs K4 and the head K5. The backward is `bwd_impl`'s, with cppre's
+    meaning: 'pallas' (the default) the kernels K6 and K7, 'xla' autograd of
+    the plain block and head math (`fno_block2d_bwd_plain`,
+    `projection2d_bwd_plain`); any other value raises ValueError. On a CPU
+    tensor every kernel takes its plain version. On a CUDA tensor a shape
+    the kernels do not take raises ValueError."""
+    if bwd_impl not in _BLOCK_BWD:
+        raise ValueError(f"bwd_impl must be one of {tuple(_BLOCK_BWD)}, got {bwd_impl!r}")
     m1, m2 = model.modes1, model.modes2
     fc1, fc2 = model.fc1_time, model.fc2_time
 
     def block_fn(blk, z, x3):
-        return _FusedBlock.apply(z, x3, blk, m1, m2, *_block_params(blk))
+        return _FusedBlock.apply(z, x3, blk, m1, m2, bwd_impl, *_block_params(blk))
 
     def head_fn(z):
-        return _FusedProjection.apply(z, fc1, fc2, fc1.weight, fc1.bias, fc2.weight, fc2.bias)
+        return _FusedProjection.apply(z, fc1, fc2, bwd_impl, fc1.weight, fc1.bias, fc2.weight,
+                                      fc2.bias)
 
     def apply_fn(x):
         _require_kernels(model, x, backward=True)

@@ -11,7 +11,7 @@
 | K8 | `fused_stencil_residual` | itself, `wave_residual_fused` | `stencil_kernels.fused_stencil_residual` |
 | K9 | `_joint_cp_scores_single_pass` | `ns_joint_cp_scores_fused`, `mhd_induction_joint_cp_scores_fused` with `single_pass=True` | `stencil_kernels._joint_cp_scores_single_pass` |
 | K10 | `_flat_paired_absdiff_stats` | `ns_/mhd_/wave_joint_cp_scores_flat` | `flat_kernels._flat_paired_absdiff_stats` |
-| K11 | `_flat_residual_kernel` | the same, where `flat_routing_decision` says 'two_kernel' | `flat_kernels._flat_residual_kernel` |
+| K11 | `_flat_residual_kernel` | the flat scores' two-kernel route (`flat_routing_decision` says 'paired' at every shape; the route stays for comparison) | `flat_kernels._flat_residual_kernel` |
 | K12 | `_flat_absdiff_stats_from_res` | the same, after K11 | `flat_kernels._flat_absdiff_stats_from_res` |
 
 (replaced functions under `cppre/ops/pallas/`; every `pallas_call` site there

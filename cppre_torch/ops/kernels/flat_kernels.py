@@ -17,6 +17,9 @@ the neighbouring rows and are masked out of the scores only.
 
 One CUDA source (`csrc/flat_kernels.cu`) holds the three; they call the
 cells of `csrc/stencil_cells.cuh` (K1's), so K11 then K12 gives K10's bits.
+K10 is K1's kernel (`csrc/diff_stats.cuh`) on the flat index map, storing
+|d|: K1's walk over the batch, its samples in flight and lanes, its fold,
+and a 7-tap table by value (`_k10_grid` reports its launch).
 The plain versions evaluate the same math as shifted slices of the flat
 layout (`_flat_ops`), as cppre's `_ns_momentum_flat`, `_mhd_flat` and
 `_composite_flat` do.
@@ -44,12 +47,14 @@ import torch
 
 from . import _build
 from .stencil_kernels import (
+    _BY_VALUE_TYPES,
     _CELL_TYPES,
     _cell_args,
     _check_pair,
     _mhd_cell,
     _ns_cell,
     _Residual,
+    _taps_by_value,
     _taps_cell,
     wave_joint_cp_scores_fused,
     wave_joint_cp_scores_plain,
@@ -146,6 +151,7 @@ def _flat_absdiff_stats_from_res_plain(pred, res_out, res: _Residual, ny: int, o
 
 
 def _launch(which, a, b, out, s, sq, res: _Residual, ny: int, off: int, what: str):
+    """K11 (which 11) or K12 (12)."""
     bs, nvar, nt, L = a.shape
     cell, tables = _cell_args(res, (L // ny, ny), a.device)
     lib = _build.library("flat_kernels")
@@ -156,6 +162,38 @@ def _launch(which, a, b, out, s, sq, res: _Residual, ny: int, off: int, what: st
         rc = fn(which, cell[0], a.data_ptr(), ptr(b), out.data_ptr(), ptr(s), ptr(sq),
                 bs, nvar, nt, L // ny, ny, off, *cell[1:], _build.stream_of(a))
     _build.check(lib, rc, what)
+
+
+def _launch_paired(truth, pred, out, s, sq, res: _Residual, ny: int, off: int, what: str):
+    """K10: K1's walk on the flat index map; a tap table by value where its
+    count has an instance (`_taps_by_value`), as K1 takes it."""
+    bs, nvar, nt, L = truth.shape
+    cell, tables = _cell_args(res, (L // ny, ny), truth.device, by_value=True)
+    lib = _build.library("flat_kernels")
+    fn = _build.declare(lib, "cppre_flat_paired",
+                        [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_CELL_TYPES,
+                         *_BY_VALUE_TYPES, _P])
+    with torch.cuda.device(truth.device):
+        rc = fn(cell[0], truth.data_ptr(), pred.data_ptr(), out.data_ptr(), s.data_ptr(),
+                sq.data_ptr(), bs, nvar, nt, L // ny, ny, off, *cell[1:],
+                _build.stream_of(truth))
+    _build.check(lib, rc, what)
+
+
+def _k10_grid(shape, res: _Residual, ny: int, off: int):
+    """(blocks, threads a block) of the K10 launch for flat [BS, nvar, nt, L]
+    inputs: K1's 64 cells a block over the flat window of each output frame,
+    1 to 4 threads a cell, as many as keep every block resident at once on
+    this card, in groups of at most 8 samples."""
+    bs, nvar, nt, L = shape
+    n = 0 if res.kernel is None else int(np.count_nonzero(res.kernel))
+    lib = _build.library("flat_kernels")
+    fn = _build.declare(lib, "cppre_flat_paired_grid", [_I] * 9 + [_P])
+    grid = (ctypes.c_longlong * 2)()
+    by_value = int(n > 0 and _taps_by_value(n))
+    _build.check(lib, fn(res.kind, bs, nvar, nt, L // ny, ny, off, n, by_value, grid),
+                 "K10 grid")
+    return int(grid[0]), int(grid[1])
 
 
 def _outputs(like, bs, nt, lo, moments=True):
@@ -179,7 +217,7 @@ def _flat_paired_absdiff_stats(truth, pred, res: _Residual, ny: int, off: int):
     _build.require(pred, "prediction", truth.shape, device=truth.device)
     bs, _, nt, L = truth.shape
     out = _outputs(truth, bs, nt, L - 2 * off)
-    _launch(10, truth, pred, *out, res, ny, off, what)
+    _launch_paired(truth, pred, *out, res, ny, off, what)
     _flat_paired_absdiff_stats.launches += 1
     return out
 
@@ -233,19 +271,16 @@ _flat_absdiff_stats_from_res.launches = 0
 def flat_routing_decision(shape) -> str:
     """Which route `_scores_flat` takes on the card for [BS, nvar, nt, nx, ny]
     inputs: 'paired' (K10) or 'two_kernel' (K11, then K12). A pure function
-    of the shape. K10's threads each walk the whole batch, evaluating two
-    cells per sample; K11 spreads the truth's cells over every (b, t, j),
-    leaving K12 one cell per sample. Timed on an H100 (PERF.md), the two
-    kernels won at BS x nvar = 1000 (wave, [1000, 20, 64, 64]: 2.2 vs 2.9 ms)
-    and 600 (MHD, [100, 6, 20, 128, 128]: 3.5 vs 3.8 ms over the five
-    equations, 0.94 vs 1.19 ms for induction) and lost at 300 (NS,
-    [100, 3, 21, 100, 100]: 0.52 vs 0.38-0.40 ms)."""
-    bs, nvar = shape[:2]
-    return "two_kernel" if bs * nvar >= _TWO_KERNEL_MIN_LOAD else "paired"
-
-
-# the batch x variables from which K11 then K12 beat K10 (flat_routing_decision)
-_TWO_KERNEL_MIN_LOAD = 500
+    of the shape. K10 at every shape: K1's walk reads the two tensors' taps
+    once where K11 then K12 write and re-read the truth's residual. On an
+    H100 (device ms, PERF.md) it was faster at NS [100, 3, 21, 100, 100]
+    (0.32 vs 0.49), wave [1000, 20, 64, 64] (0.56 vs 2.14) and at MHD [100,
+    6, 20, 128, 128] for induction, the MHD configuration's equation (0.60
+    vs 0.90), continuity, energy (0.69 vs 0.73) and gauss. At momentum, not
+    a configured equation, K10 trails by 1 % (0.780 vs 0.774; 4 % by
+    events). Where cppre routes by its VMEM estimates, which have no
+    counterpart here, the two routes give the same bits."""
+    return "paired"
 
 
 def _flat_scores_from_stats(absdiff, s, sq, n: int, nx: int, ny: int, off: int, eps: float):

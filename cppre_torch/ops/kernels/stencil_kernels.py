@@ -26,16 +26,17 @@ is the plain version of every kernel it runs in.
   optionally stored as bfloat16 (`diff_dtype`; the moments always come
   from the float32 diff). Instances `ns_joint_cp_diff_stats`,
   `wave_joint_cp_diff_stats`, `mhd_joint_cp_diff_stats`.
-* K1 and K8 take a tap table by value, in the kernel's parameters, where
-  its count has a compile-time instance (`_taps_by_value`), and read the
-  device copy of the same table otherwise; the other kernels always read
-  the device copy. Every form adds the taps in `_tap_table`'s order.
-* K3 `_joint_cp_diff_stats_chunked`: K1's outputs for 3-wide cells, each
-  block's time chunk and spatial tile staged in shared memory and walked
-  over the batch in sample order, so its bits are K1's. Instances
-  `ns_/wave_/mhd_/jorek_joint_cp_diff_stats_chunked` (the wave one for
-  3-wide kernels only); `t_block` is cut to fit shared memory
-  (`_chunk_t_block`).
+* K1, K3 and K8 (and the flat K10) take a tap table by value, in the
+  kernel's parameters, where its count has a compile-time instance
+  (`_taps_by_value`), and read the device copy of the same table
+  otherwise; the other kernels always read the device copy. Every form
+  adds the taps in `_tap_table`'s order.
+* K3 `_joint_cp_diff_stats_chunked`: K1's outputs for 3-wide cells; a
+  block walks the batch in sample order over one tile and chunk of output
+  frames, streaming each sample's frames through shared memory, so its
+  bits are K1's. Instances `ns_/wave_/mhd_/jorek_joint_cp_diff_stats_chunked`
+  (the wave one for 3-wide kernels only); `t_block` bounds the frames a
+  block takes (`_chunk_t_block`, the card's launch `_chunk_geom`).
 * The joint-CP scores [BS]
   (`ns_/wave_/mhd_induction_/jorek_joint_cp_scores_fused`): K1 (or K3, by
   `routing_decision`) followed by the `_scores_from_diff_stats`
@@ -59,9 +60,10 @@ two-pass std) where the one-pass formula does not.
 
 `routing_decision` (a pure function of the shape) sends the routed
 entries (`*_joint_cp_diff_stats`, `*_joint_cp_scores_fused` two-pass) to K1
-('paired') or K3 ('chunked'). K3 was slower than K1 at every shape timed on
-the card, so it says 'paired' throughout; cppre's 'composed' route answers
-a TPU VMEM limit that K1 does not have, and has no counterpart.
+('paired') or K3 ('chunked'). The card timed the routed scores through K3
+faster at no shape in every turn, so it says 'paired' throughout; cppre's
+'composed' route answers a TPU VMEM limit that K1 does not have, and has
+no counterpart.
 
 The JOREK cell reads the major radius R of each row from a device table of
 the input grid's values, so any grid takes the kernels; cppre rebuilds an
@@ -674,44 +676,95 @@ def mhd_joint_cp_diff_stats(truth, prediction, equation: str = "induction",
 
 # ---- K3: diff and moments, time-chunked ------------------------------------------
 
-# K3's tile of the interior (csrc/stencil_kernels.cu kChunkTX, kChunkTY): a
-# block stages a (t_block + 2) x 10 x 34 window of each variable its cell
-# reads, for truth and prediction, twice over (double buffer), in at most
-# 227 KB of shared memory; a thread keeps the sums of at most 8 frames.
-_K3_WINDOW = (10, 34)
+# K3's window frame (csrc/stencil_kernels.cu, kChunkRows x kChunkRW floats a
+# variable, a tile of 8 x 32 output cells and its halo), the frames it keeps
+# in flight and the most output frames a block takes. A block's ring holds
+# one window of t + 2 frame slots (two where t + 2 < kChunkAhead + 3), each
+# slot the truth's and the prediction's frame of every variable from the
+# first to the last the cell reads: `_chunk_t_block` mirrors the fit of
+# `chunk_geom` there and `_chunk_window` a slot's strides (`ChunkWindow`);
+# `_chunk_geom` reports the C side's launch.
+_K3_ROWS, _K3_ROW = 10, 36
+_K3_FRAME_FLOATS = _K3_ROWS * _K3_ROW
+_K3_AHEAD = 2
 _K3_MAX_T_BLOCK = 8
 _SMEM_BYTES = 232448
+# variables from the first to the last each cell kind reads (the span of
+# `cell_vars` in csrc/stencil_cells.cuh), by kind
+_CELL_WINDOWS = (3, 3, 6, 6, 5, 2, 1, 2, 3)
 
 
-def _chunk_t_block(t_block: int, nvar: int, ot: int) -> int:
-    """The frames per chunk K3 runs for a requested `t_block`: at most 8 and
-    the interior's ot, then cut until the window fits shared memory, as
-    cppre cuts its t_block to fit VMEM. Raises if one frame does not fit."""
+def _chunk_ring_bytes(t: int, windows: int) -> int:
+    """Shared memory of a K3 ring at t output frames a block."""
+    frames = -(-(_K3_AHEAD + 3) // (t + 2)) * (t + 2)
+    return 4 * 2 * windows * _K3_FRAME_FLOATS * frames
+
+
+def _chunk_window(res: _Residual):
+    """The (rows, row length) of a K3 ring slot, the strides its tap table
+    is built for: the truth's and the prediction's 10-row frames of each
+    windowed variable, rows of 36 floats."""
+    return 2 * _CELL_WINDOWS[res.kind] * _K3_ROWS, _K3_ROW
+
+
+def _chunk_t_block(t_block: int, windows: int, ot: int) -> int:
+    """The most output frames a K3 block takes for a requested `t_block`
+    and a cell with `windows` variable windows: at most 8 and the
+    interior's ot, with the rings of its chunks (the last one may be
+    shorter) within a block's 227 KB of shared memory, as cppre cuts its
+    t_block to fit VMEM. The card's launch may take fewer where that fills
+    its SMs in fewer steps (`_chunk_geom`). Raises if one frame does not
+    fit."""
     if t_block < 1:
         raise ValueError(f"t_block must be >= 1, got {t_block}")
-    smem = lambda tb: 4 * 4 * nvar * (tb + 2) * _K3_WINDOW[0] * _K3_WINDOW[1]
-    tb = max(1, min(t_block, _K3_MAX_T_BLOCK, ot))
-    while tb > 1 and smem(tb) > _SMEM_BYTES:
-        tb -= 1
-    if smem(tb) > _SMEM_BYTES:
-        raise ValueError(f"K3: {nvar} variables do not fit shared memory even at t_block=1")
-    return tb
+
+    def fits(t):
+        last = ot - (-(-ot // t) - 1) * t if ot >= 1 else t
+        return max(_chunk_ring_bytes(t, windows), _chunk_ring_bytes(last, windows)) <= _SMEM_BYTES
+
+    t = max(1, min(t_block, _K3_MAX_T_BLOCK, ot))
+    while t > 1 and not fits(t):
+        t -= 1
+    if not fits(t):
+        raise ValueError(f"K3: {windows} variable windows do not fit shared memory even at "
+                         f"t_block=1")
+    return t
+
+
+def _chunk_geom(shape, res: _Residual, t_block: int = 5):
+    """K3's launch for [BS, Nvar, Nt, Nx, Ny] inputs, cell `res` and
+    `t_block` on this card, as the library chooses it: blocks, threads (a
+    block), smem (bytes), tile (output rows, columns), frames (output frames
+    a block takes), chunks (of the output frames), windows (variables
+    staged), window (a ring slot's rows, both tensors' frames of each
+    windowed variable, and its row length: `_chunk_window`), ring (the
+    largest ring's frame slots) and per_sm (blocks an SM holds). For
+    reports and tests; a launch needs none of it."""
+    lib = _build.library("stencil_kernels")
+    fn = _build.declare(lib, "cppre_joint_cp_diff_stats_chunked_geom", [_I] * 7 + [_P])
+    g = (ctypes.c_longlong * 12)()
+    _build.check(lib, fn(res.kind, *shape, t_block, g), "K3 geometry")
+    g = [int(v) for v in g]
+    return dict(blocks=g[0], threads=g[1], smem=g[2], tile=(g[3], g[4]), frames=g[5],
+                chunks=g[6], windows=g[7], window=(g[8], g[9]), ring=g[10], per_sm=g[11])
 
 
 def _joint_cp_diff_stats_chunked(truth, prediction, res: _Residual, t_block: int = 5,
                                  centred: bool = False,
                                  what: str = "joint_cp_diff_stats_chunked"):
     """Kernel K3: K1's (diff, sum, sumsq, m2) for a 3-wide cell, each
-    block's window of the inputs staged in shared memory and walked over
-    the batch in sample order. The cell and the order are K1's, so are the
-    bits; `t_block` (cut to fit, `_chunk_t_block`) changes which block
-    computes a cell, never its value. The diff is float32. Counts the
-    launches of every K3 instance."""
+    block's tile and chunk of frames streamed through shared memory while
+    it walks the batch in sample order. The cell and the order are K1's, so
+    are the bits; `t_block` bounds the frames a block takes
+    (`_chunk_t_block`, `_chunk_geom`) and changes which block computes a
+    cell, never its value. The diff is float32. A tap table goes by value
+    where its count has an instance. Counts the launches of every K3
+    instance."""
     _check_pair(truth, prediction, res, what)
     if res.k != 3 or truth.shape[0] < 1:
         raise ValueError(f"{what}: the chunked kernel takes 3-wide stencils and a batch, "
                          f"got k={res.k}, {tuple(truth.shape)}")
-    tb = _chunk_t_block(t_block, truth.shape[1], truth.shape[2] - 2)
+    _chunk_t_block(t_block, _CELL_WINDOWS[res.kind], truth.shape[2] - 2)
     if not _build.on_cuda(truth):
         return _diff_stats_plain(truth, prediction, res, None, centred)
     _build.require(truth, "truth")
@@ -721,14 +774,15 @@ def _joint_cp_diff_stats_chunked(truth, prediction, res: _Residual, t_block: int
     diff = torch.empty((bs,) + out, device=truth.device, dtype=torch.float32)
     s, sq = (torch.empty(out, device=truth.device, dtype=torch.float32) for _ in range(2))
     m2 = torch.empty(out, device=truth.device, dtype=torch.float32) if centred else None
-    cell, tables = _cell_args(res, _K3_WINDOW, truth.device)
+    cell, tables = _cell_args(res, _chunk_window(res), truth.device, by_value=True)
     lib = _build.library("stencil_kernels")
     fn = _build.declare(lib, "cppre_joint_cp_diff_stats_chunked",
-                        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_CELL_TYPES, _P])
+                        [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_CELL_TYPES,
+                         *_BY_VALUE_TYPES, _P])
     with torch.cuda.device(truth.device):
         rc = fn(cell[0], truth.data_ptr(), prediction.data_ptr(), diff.data_ptr(),
                 s.data_ptr(), sq.data_ptr(), None if m2 is None else m2.data_ptr(),
-                bs, nvar, nt, nx, ny, tb, *cell[1:], _build.stream_of(truth))
+                bs, nvar, nt, nx, ny, t_block, *cell[1:], _build.stream_of(truth))
     _build.check(lib, rc, what)
     _joint_cp_diff_stats_chunked.launches += 1
     return diff, s, sq, m2
@@ -749,7 +803,7 @@ def ns_joint_cp_diff_stats_chunked(truth, prediction, dt: float, dx: float, dy: 
 def ns_joint_cp_diff_stats_chunked_plain(truth, prediction, dt: float, dx: float, dy: float,
                                          nu: float = 0.001, t_block: int = 5):
     """Plain PyTorch `ns_joint_cp_diff_stats_chunked` (`t_block` only checked)."""
-    _chunk_t_block(t_block, truth.shape[1], truth.shape[2] - 2)
+    _chunk_t_block(t_block, _CELL_WINDOWS[0], truth.shape[2] - 2)
     return ns_joint_cp_diff_stats_plain(truth, prediction, dt, dx, dy, nu)
 
 
@@ -773,7 +827,7 @@ def wave_joint_cp_diff_stats_chunked(truth, prediction, kernel, t_block: int = 5
 def wave_joint_cp_diff_stats_chunked_plain(truth, prediction, kernel, t_block: int = 5):
     """Plain PyTorch `wave_joint_cp_diff_stats_chunked`."""
     _wave_cell_3(kernel, "wave_joint_cp_diff_stats_chunked")
-    _chunk_t_block(t_block, 1, truth.shape[1] - 2)
+    _chunk_t_block(t_block, _CELL_WINDOWS[6], truth.shape[1] - 2)
     return wave_joint_cp_diff_stats_plain(truth, prediction, kernel)
 
 
@@ -789,7 +843,7 @@ def mhd_joint_cp_diff_stats_chunked(truth, prediction, equation: str = "inductio
 def mhd_joint_cp_diff_stats_chunked_plain(truth, prediction, equation: str = "induction",
                                           t_block: int = 5):
     """Plain PyTorch `mhd_joint_cp_diff_stats_chunked`."""
-    _chunk_t_block(t_block, truth.shape[1], truth.shape[2] - 2)
+    _chunk_t_block(t_block, _CELL_WINDOWS[_mhd_cell(equation).kind], truth.shape[2] - 2)
     return mhd_joint_cp_diff_stats_plain(truth, prediction, equation)
 
 
@@ -809,7 +863,7 @@ def jorek_joint_cp_diff_stats_chunked_plain(truth, prediction, R, Dc: float = 3.
     """Plain PyTorch `jorek_joint_cp_diff_stats_chunked` (`t_block` only checked)."""
     res = _jorek_cell(R, Dc, K, equation)
     _check_pair(truth, prediction, res, "jorek_joint_cp_diff_stats_chunked")
-    _chunk_t_block(t_block, truth.shape[1], truth.shape[2] - 2)
+    _chunk_t_block(t_block, _CELL_WINDOWS[res.kind], truth.shape[2] - 2)
     return _diff_stats_plain(truth, prediction, res)[:3]
 
 
@@ -822,12 +876,17 @@ def routing_decision(shape, out_shape=None, has_chunked: bool = True) -> str:
     cppre's third route, 'composed', exists because its paired kernel needs
     whole trajectories in VMEM; K1 has no such ceiling here.
 
-    K1 everywhere: timed on an H100 at the three flagship K1 shapes and
-    cppre's three grid-scaling shapes (up to [12, 3, 21, 512, 512]), K3 took
-    1.3-2.9x K1's time at every one (PERF.md): it stages ~1.9x each input's
-    bytes through shared memory, and its windows hold one or two blocks per
-    SM. The explicit `*_joint_cp_diff_stats_chunked` entries still launch
-    K3."""
+    K1 everywhere, as timed on an H100 (PERF.md, `tools/stencil_vs_parent.py`).
+    K3 streams its windows through shared memory and runs within a few per
+    cent of K1 at cppre's grid-scaling shapes, 1-3 % ahead without the
+    centred pass at MHD induction [25, 6, 21, 256, 256] and JOREK continuity
+    [12, 3, 21, 512, 512]. The routed scores take the centred pass, whose
+    K3 form reads each thread's stored diffs back one sample after another:
+    through K3 they won at neither shape nor at a batch of 32 in every
+    turn of two calls (level within the turns' spread at MHD and at JOREK's
+    batch of 12, 7 % behind K1 at JOREK's batch of 32). At the flagship
+    shapes' batches of 100 or more K1 leads by far. The explicit
+    `*_joint_cp_diff_stats_chunked` entries always launch K3."""
     return "paired"
 
 

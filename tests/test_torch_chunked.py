@@ -86,13 +86,19 @@ def test_wave_chunked_matches_cppre():
 
 def test_chunk_t_block_fits_shared_memory():
     """t_block is cut to at most 8 frames, the interior's length, and what
-    fits 227 KB of shared memory: 2 slots x 2 tensors x nvar x (t_block + 2)
-    frames of a 10 x 34 window, as cppre cuts its t_block to fit VMEM."""
-    assert sk._chunk_t_block(5, 3, 19) == 5
-    assert sk._chunk_t_block(5, 6, 19) == 5          # 228 480 B of 232 448
-    assert sk._chunk_t_block(8, 6, 19) == 5
+    fits a block's 227 KB of shared memory: K3's ring of t_block + 2 frame
+    slots (two windows of them below 3 frames; the last chunk's too), each
+    slot the truth's and the prediction's 10 x 36 windows of every variable
+    from the first to the last the cell reads, as cppre cuts its t_block to
+    fit VMEM. The windows of each cell kind mirror `cell_vars`."""
+    assert sk._chunk_t_block(5, 3, 19) == 5          # NS: 60 480 B
+    assert sk._chunk_ring_bytes(5, 3) == 60480
+    assert sk._chunk_ring_bytes(1, 3) == sk._chunk_ring_bytes(2, 3) * 6 // 8
+    assert sk._chunk_t_block(8, 6, 19) == 8          # MHD momentum: 172 800 B
+    assert sk._chunk_t_block(8, 12, 19) == 4         # 207 360 B of 232 448
     assert sk._chunk_t_block(20, 1, 24) == 8
     assert sk._chunk_t_block(5, 3, 2) == 2
+    assert sk._CELL_WINDOWS == (3, 3, 6, 6, 5, 2, 1, 2, 3)
     with pytest.raises(ValueError):
         sk._chunk_t_block(0, 3, 19)
     with pytest.raises(ValueError):
@@ -100,10 +106,13 @@ def test_chunk_t_block_fits_shared_memory():
 
 
 def test_routing_decision_is_a_pure_function_of_the_shape():
-    """K1 at every shape timed on the card: the flagship K1 shapes and the
-    grid-scaling shapes (scripts/bench_scaling.py), whatever `has_chunked`
-    and the output shape say."""
+    """K1 at every shape timed on the card: the flagship K1 shapes, the
+    grid-scaling shapes (scripts/bench_scaling.py), JOREK's, and a batch of
+    32 at the MHD and JOREK grid-scaling planes, where the routed scores
+    through K3 were no faster; whatever `has_chunked` and the output shape
+    say."""
     for shape in [(12, 3, 21, 512, 512), (25, 6, 21, 256, 256), (12, 1, 26, 512, 512),
+                  (32, 6, 21, 256, 256), (32, 3, 21, 512, 512), (100, 3, 40, 32, 32),
                   (100, 3, 21, 100, 100), (1000, 1, 20, 64, 64), (100, 6, 20, 128, 128)]:
         assert K.routing_decision(shape) == "paired"
         assert K.routing_decision(shape, has_chunked=False) == "paired"

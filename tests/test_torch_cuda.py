@@ -862,3 +862,133 @@ def test_k9_geometry(dev):
     assert sk._k9_grid((908, 3, 5, 6, 7), sk._ns_cell(*ARGS))["cells"] == 32
     assert sk._k9_grid((1815, 3, 5, 6, 7), sk._ns_cell(*ARGS))["cells"] == 32
     assert sk._k9_grid((1816, 3, 5, 6, 7), sk._ns_cell(*ARGS))["route"] == "recompute"
+
+
+# ---- K10 on K1's walk, K3 streaming frames, the bwd_impl route ----------------
+
+K10_TAIL_CELLS = ["ns", "wave", "wave-corner", "mhd-continuity", "mhd-energy", "mhd-induction"]
+
+
+def _k10_tail_case(name, bs, dev):
+    """(truth, prediction, cell, Ny, off) flat [BS, nvar, nt, L]: the wave
+    experiment's 7-tap kernel (by value), with a D_xy cross term (9 taps,
+    the device table, off = Ny + 1); MHD cells with 2 samples in flight and
+    no centred pass (continuity, energy) and with K1's 4 (induction)."""
+    ny = 37
+    if name == "ns":
+        t, cell, off = _randn((bs, 3, 7, 13, ny), 80, dev), sk._ns_cell(*ARGS), ny
+    elif name.startswith("wave"):
+        kern = _wave_kernel(corner=name == "wave-corner")
+        t, cell = _randn((bs, 1, 7, 13, ny), 80, dev), sk._taps_cell(kern)
+        off = fk._composite_off(kern, ny)
+    else:
+        t, cell, off = _mhd((bs, 6, 7, 13, ny), 80, dev), sk._mhd_cell(name[4:]), ny
+    p = t + 0.1 * _randn(t.shape, 81, dev)
+    flat = lambda a: a.reshape(a.shape[:3] + (-1,))
+    return flat(t), flat(p), cell, ny, off
+
+
+@pytest.mark.parametrize("bs", [1, 2, 7, 13])
+@pytest.mark.parametrize("name", K10_TAIL_CELLS)
+def test_k10_batch_tails_equal_the_two_kernel_route(dev, name, bs):
+    """K10 walks the batch in K1's groups (U samples a thread, up to 4
+    threads a cell): at batch sizes that end a group early its |d|, sum and
+    sumsq equal K11 then K12 bit for bit, and its plain version within 1e-5
+    of max."""
+    tf, pf, cell, ny, off = _k10_tail_case(name, bs, dev)
+    got = fk._flat_paired_absdiff_stats(tf, pf, cell, ny, off)
+    two = fk._flat_absdiff_stats_from_res(pf, fk._flat_residual_kernel(tf, cell, ny, off), cell,
+                                          ny, off)
+    assert all(torch.equal(a, b) for a, b in zip(got, two))
+    for g, r in zip(got, fk._flat_paired_absdiff_stats_plain(tf, pf, cell, ny, off)):
+        _close(g, r, 1e-5)
+
+
+def test_k10_grid_is_k1s_on_the_flat_window(dev):
+    """K10 launches K1's 64-cell blocks over each output frame's flat window,
+    32 cells of a row and the 32 below them, 1 to 4 threads a cell."""
+    wave = sk._taps_cell(_wave_kernel())
+    blocks, threads = fk._k10_grid((1000, 1, 20, 64 * 64), wave, 64, 64)
+    assert blocks == 18 * -(-(64 * 64 - 128) // 64) and threads in (64, 128, 192, 256)
+    ns = sk._ns_cell(*ARGS)
+    assert fk._k10_grid((100, 3, 21, 100 * 100), ns, 100, 100) == (19 * -(-9800 // 64), 64)
+
+
+K3_RAGGED_CELLS = ["ns", "mhd-induction", "taps7", "jorek-continuity"]
+
+
+@pytest.mark.parametrize("name", K3_RAGGED_CELLS)
+def test_k3_few_tiles_and_a_ragged_last_chunk(dev, name):
+    """K3 on a plane of 6 tiles (fewer than the card's SMs) and 101 output
+    frames, which its geometry cuts into chunks of 2 (the last one
+    shorter): diff, sum, sumsq and the centred m2 equal K1's bit for bit."""
+    shape = (3, 3, 103, 20, 40)
+    if name == "ns":
+        t, cell = _randn(shape, 82, dev), sk._ns_cell(*ARGS)
+    elif name.startswith("mhd"):
+        t, cell = _mhd((3, 6) + shape[2:], 82, dev), sk._mhd_cell(name[4:])
+    elif name == "taps7":
+        t, cell = _randn((3, 1) + shape[2:], 82, dev), sk._taps_cell(_wave_kernel())
+    else:
+        t = _randn(shape, 82, dev)
+        cell = sk._jorek_cell(_jorek_r(shape[3], affine=False), 3.4, 2.25e-7, "continuity")
+    p = t + 0.1 * _randn(t.shape, 83, dev)
+    geom = sk._chunk_geom(tuple(t.shape), cell)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert geom["blocks"] // geom["chunks"] < sms and 101 % geom["frames"] != 0
+    got = sk._joint_cp_diff_stats_chunked(t, p, cell, centred=True)
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, sk._joint_cp_diff_stats(t, p, cell, centred=True)))
+
+
+def test_k3_geometry(dev):
+    """K3's tiles are 8 x 32 output cells with a window frame of 10 x 36
+    floats a variable, a ring slot of both tensors' frames (NS: 60 rows of
+    36); a block takes at most t_block frames, and fewer where that fills
+    the card's SMs in fewer frame steps: the grid-scaling NS shape takes 5
+    (4 096 blocks, three an SM, a ring of 7 slots), JOREK's 32 x 32 plane 1
+    (38 chunks of its 4 tiles, two windows of 3 slots), MHD induction's 5
+    windows (two blocks an SM) 5 of the 8 t_block allows. The slot's
+    strides the wrapper builds a tap table for (`_chunk_window`) are the
+    library's, for every cell kind."""
+    ns, jorek = sk._ns_cell(*ARGS), sk._jorek_cell(_jorek_r(32), 3.4, 2.25e-7, "continuity")
+    cells = [ns, jorek, sk._jorek_cell(_jorek_r(32), 3.4, 2.25e-7, "temperature")]
+    cells += [sk._mhd_cell(eq) for eq in ("continuity", "momentum", "energy", "induction",
+                                          "gauss")]
+    for cell in cells + [sk._taps_cell(_wave_kernel())]:
+        shape = (2, 1 if cell.kernel is not None else 6, 5, 32, 32)
+        assert sk._chunk_geom(shape, cell)["window"] == sk._chunk_window(cell), cell.kind
+    g = sk._chunk_geom((12, 3, 21, 512, 512), ns)
+    assert (g["tile"], g["window"], g["frames"], g["blocks"]) == ((8, 32), (60, 36), 5, 4096)
+    assert (g["smem"], g["threads"], g["ring"], g["per_sm"]) == (60480, 256, 7, 3)
+    assert sk._chunk_geom((12, 3, 21, 512, 512), ns, t_block=2)["frames"] <= 2
+    g = sk._chunk_geom((100, 3, 40, 32, 32), jorek)
+    assert (g["frames"], g["chunks"], g["blocks"], g["ring"]) == (1, 38, 152, 6)
+    g = sk._chunk_geom((25, 6, 21, 256, 256), sk._mhd_cell("induction"), t_block=8)
+    assert (g["windows"], g["frames"], g["per_sm"]) == (5, 5, 2)
+
+
+def test_bwd_impl_xla_differentiates_the_plain_math(dev):
+    """make_fused_train_apply(model, bwd_impl='xla'): the forward still runs
+    K4 and K5, the backward autograd of the plain block and head math (no
+    K6 or K7 launch); its gradients agree with the kernels' within 1e-3 of
+    each gradient's max (sums over pixels in another order)."""
+    model = FNO2d(1, 1, 3, 3, 2, 16, device=dev, generator=torch.Generator().manual_seed(84))
+    x = _randn((2, 2, 12, 10, 1), 85, dev)
+
+    def grads(bwd_impl):
+        model.zero_grad(set_to_none=True)
+        (make_fused_train_apply(model, bwd_impl=bwd_impl)(x) ** 2).sum().backward()
+        return {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    before = K.launch_counts()
+    got = grads("xla")
+    after = K.launch_counts()
+    assert after["K6"] == before["K6"] and after["K7"] == before["K7"]
+    assert after["K4"] > before["K4"] and after["K5"] > before["K5"]
+    want = grads("pallas")
+    for k, g in want.items():
+        g, h = (torch.view_as_real(a) if a.is_complex() else a for a in (g, got[k]))
+        assert float((h - g).abs().max()) <= 1e-3 * float(g.abs().max()), k
+    with pytest.raises(ValueError, match="bwd_impl"):
+        make_fused_train_apply(model, bwd_impl="cuda")

@@ -162,12 +162,12 @@ def test_flat_math_is_the_cell_math(name):
 
 
 def test_flat_routing_and_checks():
-    """K10 for the NS shape, K11 then K12 for the wave and MHD shapes (where
-    the card timed them faster); the window and the shapes are checked
-    before any route is taken."""
+    """K10 for the NS, wave and MHD shapes (where the card timed it faster
+    than K11 then K12); the window and the shapes are checked before any
+    route is taken."""
     assert K.flat_routing_decision((100, 3, 21, 100, 100)) == "paired"
-    assert K.flat_routing_decision((1000, 1, 20, 64, 64)) == "two_kernel"
-    assert K.flat_routing_decision((100, 6, 20, 128, 128)) == "two_kernel"
+    assert K.flat_routing_decision((1000, 1, 20, 64, 64)) == "paired"
+    assert K.flat_routing_decision((100, 6, 20, 128, 128)) == "paired"
     t, p = _pair(1, (2, 3, 5, 8, 9))
     with pytest.raises(ValueError):
         K.mhd_joint_cp_scores_flat(torch.tensor(t), torch.tensor(p))      # needs 6 fields

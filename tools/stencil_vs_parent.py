@@ -1,40 +1,59 @@
 #!/usr/bin/env python3
-"""Hold this checkout's K1, K2, K8 and K9 bit for bit against another
+"""Hold this checkout's K1, K2, K3, K8, K9 and K10 bit for bit against another
 checkout's, and time both in turns on one CUDA card.
 
-    python3 tools/stencil_vs_parent.py PARENT_DIR
+    python3 tools/stencil_vs_parent.py PARENT_DIR [--only k1,k2,k3,k8,k9,k10]
 
 PARENT_DIR holds another checkout's `cppre_torch/` (for example the parent
 commit unpacked with `git archive <commit> cppre_torch | tar -x -C DIR`).
 Both packages are loaded into one process and built from their own
-sources. At `chip_smoke.py`'s shapes, with its seeded fields:
+sources. `--only` keeps the named kernels' bitwise and timing lines (the
+ptxas and SASS lines always print). At `chip_smoke.py`'s shapes, with its
+seeded fields:
 - bitwise: K1's diff (float32 and bfloat16), sum, sumsq and, with the
   centred pass, m2 for the NS, wave, MHD-induction and JOREK cells and at
   the four grid-scaling shapes; K8's output at the wave shape, plain and
   with |.|; K2's output at the NS shape (the served [100, 3, 20, 100,
   100]), for the five MHD equations and for the two JOREK equations on the
   affine and a non-affine R; K9's scores at the NS and MHD-induction
-  shapes. Each line says `equal=True` or names what differs.
+  shapes; K3's diff, sum, sumsq and centred m2 at the four grid-scaling
+  shapes and JOREK's [100, 3, 40, 32, 32], at t_block 1, 2, 5 and 8,
+  against the parent's K3 and this checkout's K1; K10's |d|, sum and sumsq
+  at the flat NS, wave (the composite kernel and one with a corner tap) and
+  the five MHD equations' shapes, against the parent's K10 and this
+  checkout's K11 then K12. Each line says `equal=True` or names what
+  differs.
 - turns: K1 uncentred and centred at the eight shapes, K8 in both forms,
   K2 at each of its instances above (the NS one on a prepared contiguous
   tensor, as `chip_smoke.py` times it), K9 at its two shapes beside the
-  two-pass route (K1 centred and the score epilogue, this checkout's),
-  each timed (`chip_smoke.cuda_ms`, median of 15 CUDA-event-timed calls)
-  in the order parent, change, change, parent, change, parent, parent,
-  change, with the blocks each launches and the card's SM clock,
-  temperature and power after its turns; K2 and K9 also by their device
-  time (`chip_smoke.device_ms`, torch.profiler over 20 calls), which
-  leaves out the host's launch time that the events around one call hold.
-- ptxas: registers and spill bytes of this checkout's K1, K2, K8 and K9
-  kernels (`diff_stats_kernel`, `residual_window_kernel`,
-  `stencil_march_kernel`, `scores_stash_kernel`,
-  `scores_single_pass_kernel`).
-- sass: in each checkout's K1 kernels, the FFMAs whose two factors are one
-  register (the q += d * d of the sum of squares), from `cuobjdump -sass`.
+  two-pass route (K1 centred and the score epilogue, this checkout's), K3
+  at its five shapes (t_block 5) beside this checkout's K1, K10 at its
+  eight shapes beside this checkout's K11 then K12, each timed
+  (`chip_smoke.cuda_ms`, median of 15 CUDA-event-timed calls) in the order
+  parent, change, change, parent, change, parent, parent, change, with the
+  blocks each launches and the card's SM clock, temperature and power after
+  its turns; K2, K3, K9 and K10 also by their device time
+  (`chip_smoke.device_ms`, torch.profiler over 20 calls; None where the
+  profiler lost records), which leaves out the host's launch time that the
+  events around one call hold. Then the routed scores that could take K3
+  (MHD induction and JOREK continuity at their grid-scaling shapes and at
+  a batch of 32), with the route forced to K3 and to K1: bitwise, and
+  turns of both routes and of the centred K3 and K1 alone, by events.
+- ptxas: registers and spill bytes of both checkouts' K1, K2, K3, K8, K9
+  and K10 kernels (`diff_stats_kernel`, `residual_window_kernel`,
+  `diff_stats_chunked_kernel`, `stencil_march_kernel`,
+  `scores_stash_kernel`, `scores_single_pass_kernel`, and in
+  `flat_kernels` `diff_stats_kernel` or the parent's `flat_paired_kernel`),
+  and a `[ptxas-diff]` line naming the K1, K2, K8 and K9 instances whose
+  registers or spills differ between the two.
+- sass: in each checkout's K1 and K10 kernels, the FFMAs whose two factors
+  are one register (the q += d * d of the sum of squares), from
+  `cuobjdump -sass`.
 
 Prints the card's name and power limit first. Exits 1 if any output
-differs from the parent's or a K1, K2, K8 or K9 kernel spills. Needs one
-card.
+differs from the parent's, K3 from K1 (or its routed scores from K1's),
+K10 from K11 then K12, or a K1, K2, K3, K8, K9 or K10 kernel of this
+checkout spills. Needs one card.
 """
 
 from __future__ import annotations
@@ -52,8 +71,15 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TURNS = ("parent", "change", "change", "parent", "change", "parent", "parent", "change")
-NEW_BODIES = ("diff_stats_kernel", "stencil_march_kernel", "residual_window_kernel",
-              "scores_stash_kernel", "scores_single_pass_kernel")
+# the kernel bodies of each library whose ptxas lines print (K1, K2, K3, K8,
+# K9; K10, and the parent's K10); those of K1, K2, K8 and K9 are compared
+BODIES = {"stencil_kernels": ("diff_stats_kernel", "stencil_march_kernel",
+                              "residual_window_kernel", "scores_stash_kernel",
+                              "scores_single_pass_kernel", "diff_stats_chunked_kernel"),
+          "flat_kernels": ("diff_stats_kernel", "flat_paired_kernel")}
+UNCHANGED = ("diff_stats_kernel", "stencil_march_kernel", "residual_window_kernel",
+             "scores_stash_kernel", "scores_single_pass_kernel")
+KERNELS = ("k1", "k2", "k3", "k8", "k9", "k10")
 
 
 def load(path):
@@ -63,6 +89,7 @@ def load(path):
         del sys.modules[k]
     sys.path.insert(0, path)
     try:
+        import cppre_torch.ops.kernels.flat_kernels as fk
         import cppre_torch.ops.kernels.stencil_kernels as sk
         from cppre_torch.experiments import jorek, wave
         from cppre_torch.ops.kernels import _build
@@ -70,7 +97,8 @@ def load(path):
         from cppre_torch.solvers import Wave2D
     finally:
         sys.path.remove(path)
-    return dict(sk=sk, build=_build, jorek=jorek, wave=wave, PRE_Wave=PRE_Wave, Wave2D=Wave2D)
+    return dict(sk=sk, fk=fk, build=_build, jorek=jorek, wave=wave, PRE_Wave=PRE_Wave,
+                Wave2D=Wave2D)
 
 
 def card_state():
@@ -154,8 +182,208 @@ def turns(cs, run, timer=None):
     return t
 
 
+def ptxas_lines(cs, pkg, bad):
+    """Print both checkouts' ptxas figures of the kernel bodies; a spill in
+    this checkout's is a failure; name the K1, K2, K8 and K9 instances
+    whose figures differ between the two."""
+    seen = {}
+    for who in ("parent", "change"):
+        for lib, bodies in BODIES.items():
+            for fn, info in cs.ptxas_summary(pkg[who]["build"].ptxas_report(lib)).items():
+                if fn.split("<")[0] not in bodies:
+                    continue
+                print(f"[ptxas] {who} {lib} {fn} {json.dumps(info)}", flush=True)
+                # K1's index map became a template argument (its default)
+                seen[(who, lib, fn.replace(",PlaneCells>", ">"))] = info
+                if who == "change" and (info.get("spill_stores") or info.get("spill_loads")):
+                    bad.append(f"spill in {lib} {fn}")
+    moved = sorted(f"{fn}: {info} -> {seen.get(('change', lib, fn))}"
+                   for (who, lib, fn), info in seen.items()
+                   if who == "parent" and lib == "stencil_kernels"
+                   and fn.split("<")[0] in UNCHANGED and seen.get(("change", lib, fn)) != info)
+    print(f"[ptxas-diff] k1_k2_k8_k9_instances_that_differ={json.dumps(moved)}", flush=True)
+
+
+def sass_lines(cs, pkg):
+    """In each checkout's K1 and K10 kernels, the FFMAs whose two factors are
+    one register (q += d * d)."""
+    tool = os.path.join(os.path.dirname(pkg["change"]["build"]._nvcc()), "cuobjdump")
+    for who in ("parent", "change"):
+        for lib in ("stencil_kernels", "flat_kernels"):
+            sass = subprocess.run([tool, "-sass", str(pkg[who]["build"]._lib_path(lib))],
+                                  capture_output=True, text=True, check=True, timeout=600).stdout
+            fn, found = None, {}
+            for line in sass.splitlines():
+                m = re.search(r"Function : (\S+)", line)
+                if m:
+                    fn = cs._kernel_name(m.group(1))
+                    continue
+                if fn and fn.startswith(("diff_stats_kernel", "flat_paired_kernel",
+                                         "flat_from_res_kernel")):
+                    if re.search(r"\bFFMA\s+R\d+,\s+(-?)(R\d+),\s+\1\2,", line):
+                        found[fn] = found.get(fn, 0) + 1
+            print(f"[sass] {who} {lib} ffma_with_one_register_squared={json.dumps(found)}",
+                  flush=True)
+
+
+def flat_cases(cs, wave_kern):
+    """{name: (fields shape [BS, nvar, nt, nx, ny], seed, cell maker, its
+    window's margin)} at chip_smoke's flat shapes."""
+    corner = np.array(wave_kern, np.float32)
+    corner[1, 0, 0] = corner[1, 2, 2] = 0.125              # a D_xy cross term
+    args = (cs.DT, cs.DX, cs.DY, cs.NU)
+    out = {"flat-ns": ((100, 3, 21, 100, 100), cs.SEED + 50, lambda sk: sk._ns_cell(*args),
+                       lambda fk, ny: ny)}
+    for name, kern in (("flat-wave", wave_kern), ("flat-wave-corner", corner)):
+        out[name] = ((cs.WAVE["res_shape"][0], 1) + cs.WAVE["res_shape"][1:], cs.SEED + 50,
+                     lambda sk, k=kern: sk._taps_cell(k),
+                     lambda fk, ny, k=kern: fk._composite_off(k, ny))
+    for eq in cs.MHD_RES_FLOPS:
+        out[f"flat-mhd-{eq}"] = (cs.MHD["res_shape"], cs.SEED + 50,
+                                 lambda sk, e=eq: sk._mhd_cell(e), lambda fk, ny: ny)
+    return out
+
+
+def k3_lines(cs, pkg, table, dev, bad):
+    """K3 at the grid-scaling shapes and JOREK's: bitwise against the parent
+    and against this checkout's K1 at t_block 1, 2, 5 and 8 (centred), then
+    turns beside K1, by events and device time."""
+    sk, psk = pkg["change"]["sk"], pkg["parent"]["sk"]
+    mods = {"change": sk, "parent": psk}
+    for name in ("scaling-ns", "scaling-mhd", "scaling-wave", "scaling-jorek", "jorek"):
+        shape, seed, mk = table[name][:3]
+        torch.cuda.empty_cache()
+        truth, pred = cs.device_fields(shape, seed, dev, density=name.endswith("mhd"))
+        res = {who: mk(mods[who]) for who in mods}
+        k1 = sk._joint_cp_diff_stats(truth, pred, res["change"], centred=True)
+        for tb in (1, 2, 5, 8):
+            got = {who: mods[who]._joint_cp_diff_stats_chunked(truth, pred, res[who],
+                                                                t_block=tb, centred=True)
+                   for who in mods}
+            d, d1 = differs(got["change"], got["parent"]), differs(got["change"], k1)
+            tag = f"K3 {name} t_block={tb}"
+            print(f"[bitwise] {tag} equal={not d} equal_k1={not d1}"
+                  + (f" differs={d}" if d else "") + (f" differs_k1={d1}" if d1 else ""),
+                  flush=True)
+            if d or d1:
+                bad.append(tag)
+            del got
+        del k1
+        run = {who: (lambda who=who: mods[who]._joint_cp_diff_stats_chunked(truth, pred,
+                                                                             res[who]))
+               for who in mods}
+        run["k1"] = lambda: sk._joint_cp_diff_stats(truth, pred, res["change"])
+        tk, td = turns(cs, run), turns(cs, run, cs.device_ms)
+        geom = sk._chunk_geom(shape, res["change"])
+        print(f"[turns] K3 {name} shape={json.dumps(list(shape))} blocks={geom['blocks']} "
+              f"threads_a_block={geom['threads']} smem={geom['smem']} "
+              f"frames_a_block={geom['frames']} chunks={geom['chunks']} "
+              f"change_ms={tk['change']} parent_ms={tk['parent']} k1_ms={tk['k1']} "
+              f"change_device_ms={td['change']} parent_device_ms={td['parent']} "
+              f"k1_device_ms={td['k1']} {card_state()}", flush=True)
+        del truth, pred
+
+
+# The routed scores of the cells that `routing_decision` could send to K3:
+# the grid-scaling shapes and a batch near the short-batch limit
+ROUTED = {"mhd-induction": ((25, 6, 21, 256, 256), (32, 6, 21, 256, 256)),
+          "jorek-continuity": ((12, 3, 21, 512, 512), (32, 3, 21, 512, 512))}
+
+
+def k3_route_lines(cs, pkg, dev, bad):
+    """The routed joint-CP scores (`mhd_induction_/jorek_joint_cp_scores_fused`,
+    which take the centred pass) with the route forced to K3 and to K1:
+    bitwise, then turns (K1's route in the parent's slots, K3's in the
+    change's) by events, and the centred K3 and K1 alone beside them."""
+    sk = pkg["change"]["sk"]
+    decide = sk.routing_decision
+    for name, shapes in ROUTED.items():
+        for shape in shapes:
+            torch.cuda.empty_cache()
+            truth, pred = cs.device_fields(shape, cs.SEED + 40, dev,
+                                           density=name.startswith("mhd"))
+            if name.startswith("mhd"):
+                res = sk._mhd_cell("induction")
+                score = lambda: sk.mhd_induction_joint_cp_scores_fused(truth, pred, eps=cs.EPS)
+            else:
+                R = cs.jorek_r(shape[3])
+                res = sk._jorek_cell(R, 3.4, 2.25e-7, "continuity")
+                score = lambda: sk.jorek_joint_cp_scores_fused(truth, pred, R, eps=cs.EPS)
+
+            def via(route):
+                def run():
+                    sk.routing_decision = lambda *a, **k: route
+                    try:
+                        return score()
+                    finally:
+                        sk.routing_decision = decide
+                return run
+
+            routes = {"change": via("chunked"), "parent": via("paired")}
+            same = torch.equal(routes["change"](), routes["parent"]())
+            tag = f"K3 routed {name} {list(shape)}"
+            print(f"[bitwise] {tag} k3_route_equal_k1_route={same}", flush=True)
+            if not same:
+                bad.append(tag)
+            tr = turns(cs, routes)
+            kernels = {"change": lambda: sk._joint_cp_diff_stats_chunked(truth, pred, res,
+                                                                         centred=True),
+                       "parent": lambda: sk._joint_cp_diff_stats(truth, pred, res, centred=True)}
+            tk = turns(cs, kernels)
+            print(f"[turns] K3 routed {name} shape={json.dumps(list(shape))} "
+                  f"routing_decision={decide(shape)} "
+                  f"k3_route_ms={tr['change']} k1_route_ms={tr['parent']} "
+                  f"k3_centred_ms={tk['change']} k1_centred_ms={tk['parent']} {card_state()}",
+                  flush=True)
+            del truth, pred
+
+
+def k10_lines(cs, pkg, wave_kern, dev, bad):
+    """K10 at the flat shapes: bitwise against the parent and against this
+    checkout's K11 then K12, then turns beside K11 then K12, by events and
+    device time."""
+    fk, pfk = pkg["change"]["fk"], pkg["parent"]["fk"]
+    sk, psk = pkg["change"]["sk"], pkg["parent"]["sk"]
+    for name, (shape, seed, mk, off_of) in flat_cases(cs, wave_kern).items():
+        torch.cuda.empty_cache()
+        truth, pred = cs.device_fields(shape, seed, dev, density="mhd" in name)
+        bs, nvar, nt, nx, ny = shape
+        tf, pf = truth.reshape(bs, nvar, nt, nx * ny), pred.reshape(bs, nvar, nt, nx * ny)
+        res = {"change": mk(sk), "parent": mk(psk)}
+        off = off_of(fk, ny)
+        flat = {"change": fk, "parent": pfk}
+        run = {who: (lambda who=who: flat[who]._flat_paired_absdiff_stats(tf, pf, res[who], ny,
+                                                                           off))
+               for who in flat}
+        run["two_kernel"] = lambda: fk._flat_absdiff_stats_from_res(
+            pf, fk._flat_residual_kernel(tf, res["change"], ny, off), res["change"], ny, off)
+        got = {who: run[who]() for who in run}
+        d, d2 = differs(got["change"], got["parent"]), differs(got["change"], got["two_kernel"])
+        tag = f"K10 {name}"
+        print(f"[bitwise] {tag} equal={not d} equal_two_kernel={not d2}"
+              + (f" differs={d}" if d else "") + (f" differs_two_kernel={d2}" if d2 else ""),
+              flush=True)
+        if d or d2:
+            bad.append(tag)
+        del got
+        tk, td = turns(cs, run), turns(cs, run, cs.device_ms)
+        blocks, threads = fk._k10_grid(tuple(tf.shape), res["change"], ny, off)
+        print(f"[turns] K10 {name} shape={json.dumps(list(shape))} off={off} blocks={blocks} "
+              f"threads_a_block={threads} change_ms={tk['change']} parent_ms={tk['parent']} "
+              f"two_kernel_ms={tk['two_kernel']} change_device_ms={td['change']} "
+              f"parent_device_ms={td['parent']} two_kernel_device_ms={td['two_kernel']} "
+              f"{card_state()}", flush=True)
+        del truth, pred, tf, pf
+
+
 def main(argv):
-    if len(argv) < 2 or not os.path.isdir(os.path.join(argv[1], "cppre_torch")):
+    only = set(KERNELS)
+    if "--only" in argv:
+        i = argv.index("--only")
+        only = set(argv[i + 1].split(","))
+        argv = argv[:i] + argv[i + 2:]
+    if (len(argv) < 2 or not os.path.isdir(os.path.join(argv[1], "cppre_torch"))
+            or not only <= set(KERNELS)):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -167,43 +395,28 @@ def main(argv):
     paths = {"parent": os.path.abspath(argv[1]), "change": ROOT}
     pkg = {who: load(path) for who, path in paths.items()}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(pkg)) as pool:
-        list(pool.map(lambda p: p["build"].build(("stencil_kernels",)), pkg.values()))
+    with ThreadPoolExecutor(2 * len(pkg)) as pool:
+        list(pool.map(lambda a: a[0]["build"].build((a[1],)),
+                      [(p, lib) for p in pkg.values() for lib in BODIES]))
     print(f"[build] seconds={time.perf_counter() - t0:.1f}", flush=True)
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
 
     bad = []
-    report = pkg["change"]["build"].ptxas_report("stencil_kernels")
-    for fn, info in cs.ptxas_summary(report).items():
-        if fn.split("<")[0] in NEW_BODIES:
-            print(f"[ptxas] {fn} {json.dumps(info)}", flush=True)
-            if info.get("spill_stores") or info.get("spill_loads"):
-                bad.append(f"spill in {fn}")
-    tool = os.path.join(os.path.dirname(pkg["change"]["build"]._nvcc()), "cuobjdump")
-    for who in ("parent", "change"):
-        sass = subprocess.run([tool, "-sass", str(pkg[who]["build"]._lib_path("stencil_kernels"))],
-                              capture_output=True, text=True, check=True, timeout=600).stdout
-        fn, found = None, {}
-        for line in sass.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                fn = cs._kernel_name(m.group(1))
-                continue
-            if fn and fn.startswith("diff_stats_kernel"):
-                if re.search(r"\bFFMA\s+R\d+,\s+(-?)(R\d+),\s+\1\2,", line):
-                    found[fn] = found.get(fn, 0) + 1
-        print(f"[sass] {who} ffma_with_one_register_squared={json.dumps(found)}", flush=True)
+    ptxas_lines(cs, pkg, bad)
+    sass_lines(cs, pkg)
 
     dev = torch.device("cuda", 0)
     table, wave_kern = cases(cs, pkg, dev)
     sk, psk = pkg["change"]["sk"], pkg["parent"]["sk"]
     for name, (shape, seed, mk, k2, k9) in table.items():
+        if not (only & {"k1", "k2", "k8", "k9"}):
+            break
         torch.cuda.empty_cache()
         truth, pred = cs.device_fields(shape, seed, dev, density=name.endswith("mhd"))
         res = {"change": mk(sk), "parent": mk(psk)}
         mods = {"change": sk, "parent": psk}
-        for dtype in (None, torch.bfloat16):
+        for dtype in (None, torch.bfloat16) if "k1" in only else ():
             for centred in (False, True):
                 got = {who: mods[who]._joint_cp_diff_stats(truth, pred, res[who], diff_dtype=dtype,
                                                            centred=centred)
@@ -216,17 +429,18 @@ def main(argv):
                     bad.append(tag)
                 del got
         t = {(c, who): [] for c in (False, True) for who in mods}
-        for centred in (False, True):
+        for centred in (False, True) if "k1" in only else ():
             for who in TURNS:
                 t[(centred, who)].append(round(cs.cuda_ms(
                     lambda: mods[who]._joint_cp_diff_stats(truth, pred, res[who],
                                                            centred=centred)), 4))
-        blocks, threads = sk._k1_grid(shape, res["change"])
-        print(f"[turns] K1 {name} shape={json.dumps(list(shape))} blocks={blocks} "
-              f"threads_a_block={threads} change_ms={t[(False, 'change')]} "
-              f"parent_ms={t[(False, 'parent')]} centred_change_ms={t[(True, 'change')]} "
-              f"centred_parent_ms={t[(True, 'parent')]} {card_state()}", flush=True)
-        for inst, (prepare, mk2) in k2.items():
+        if "k1" in only:
+            blocks, threads = sk._k1_grid(shape, res["change"])
+            print(f"[turns] K1 {name} shape={json.dumps(list(shape))} blocks={blocks} "
+                  f"threads_a_block={threads} change_ms={t[(False, 'change')]} "
+                  f"parent_ms={t[(False, 'parent')]} centred_change_ms={t[(True, 'change')]} "
+                  f"centred_parent_ms={t[(True, 'parent')]} {card_state()}", flush=True)
+        for inst, (prepare, mk2) in (k2.items() if "k2" in only else ()):
             f, cell2 = prepare(truth), {who: mk2(mods[who]) for who in mods}
             run = {who: (lambda who=who: mods[who]._batched_residual_fused(f, cell2[who]))
                    for who in mods}
@@ -243,7 +457,7 @@ def main(argv):
                   f"parent_ms={tk['parent']} change_device_ms={td['change']} "
                   f"parent_device_ms={td['parent']} {card_state()}", flush=True)
             del f
-        if k9 is not None:
+        if k9 is not None and "k9" in only:
             run = {who: (lambda who=who: k9(mods[who], truth, pred, True)) for who in mods}
             run["two_pass"] = lambda: k9(sk, truth, pred, False)
             got = {who: run[who]() for who in run}
@@ -263,7 +477,7 @@ def main(argv):
                   f"parent_device_ms={td['parent']} two_pass_device_ms={td['two_pass']} "
                   f"{card_state()}", flush=True)
             del got
-        if name == "wave":
+        if name == "wave" and "k8" in only:
             field = truth[:, 0]
             for take_abs in (False, True):
                 run = {who: (lambda who=who: mods[who].fused_stencil_residual(
@@ -278,6 +492,11 @@ def main(argv):
                       f"blocks={sk._march_geom(tuple(field.shape), 3)[2]} change_ms={tk['change']} "
                       f"parent_ms={tk['parent']} {card_state()}", flush=True)
         del truth, pred
+    if "k3" in only:
+        k3_lines(cs, pkg, table, dev, bad)
+        k3_route_lines(cs, pkg, dev, bad)
+    if "k10" in only:
+        k10_lines(cs, pkg, wave_kern, dev, bad)
     print(f"[done] failures={json.dumps(bad)}", flush=True)
     return 1 if bad else 0
 
