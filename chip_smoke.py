@@ -32,8 +32,8 @@ timed. Phases, one line each:
   build      compile the kernels from `cppre_torch/csrc` (nvcc, in parallel);
              then one `ptxas` line per kernel function: registers and spills;
              a spill in any instance of the FNO kernels' stages (K4-K7:
-             `FNO_BLOCK_STAGES`) or of K1's, K2's, K3's, K8's, K9's and
-             K10's bodies fails the run
+             `FNO_BLOCK_STAGES`) or of K1's, K2's, K3's, K8's, K9's, K10's,
+             K11's and K12's bodies fails the run
   device     the card, and its name and power limit from nvidia-smi
   kernels    every kernel against its plain version at the main paths'
              shapes (K1, K2, K4, K5 at the NS serving shapes, and K9 at K1's
@@ -88,10 +88,13 @@ timed. Phases, one line each:
   flat       per family (NS; wave with the composite kernel and a corner-tap
              kernel; MHD, five equations): the flat scores and calibrate by
              `flat_routing_decision` and through the other route (the main
-             path); K10 against its plain version over the whole window
-             (1e-5 of max), K11 then K12 against K10 (bit for bit), the flat
-             qhat against the plain flat qhat (1e-3); K10, K11, K12, plain ms
-             and K10's grid
+             path); K10, K11 and K12 each against its plain version over
+             the whole window (1e-5 of max), K11 then K12 against K10 (bit
+             for bit), the flat qhat against the plain flat qhat (1e-3);
+             K10, K11, K12, K11 then K12 and plain ms, by events and by
+             device time; the grids of K10, K11 (route, span, shared bytes,
+             frames a block) and K12; for the wave kernels the time of the
+             one PyTorch call that computes K11 (conv2d over the flat field)
 
 The launch counters are set to 0 before each main path (NS serve +
 calibrate; NS train; wave; MHD; JOREK; each scaling shape; each flat family) and
@@ -359,9 +362,9 @@ def _kernel_name(mangled):
 
 # The kernel functions of K4-K7 (csrc/fno_block.cu, fno_block_bwd.cu and
 # their headers), of K1, K2, K3, K8 and K9 (csrc/stencil_kernels.cu) and of
-# K10 (K1's body in csrc/flat_kernels.cu): built to keep every instance's
-# working set in registers, so a spill in any of them is a fault of the
-# build.
+# K10, K11 and K12 (csrc/flat_kernels.cu: K1's body for K10 and K12, and
+# K11's two bodies): built to keep every instance's working set in
+# registers, so a spill in any of them is a fault of the build.
 FNO_BLOCK_STAGES = ("dft_fwd_kernel", "spectral_mix_kernel", "inverse_x_kernel",
                     "block_out_tile_kernel", "block_bwd_tile_kernel", "idft_dx_tile_kernel",
                     "spectral_adjoint_kernel", "reduce_rows_kernel", "projection_tile_kernel",
@@ -370,7 +373,7 @@ NO_SPILL = {"fno_block": FNO_BLOCK_STAGES, "fno_block_bwd": FNO_BLOCK_STAGES,
             "stencil_kernels": ("diff_stats_kernel", "stencil_march_kernel",
                                 "residual_window_kernel", "scores_stash_kernel",
                                 "scores_single_pass_kernel", "diff_stats_chunked_kernel"),
-            "flat_kernels": ("diff_stats_kernel",)}
+            "flat_kernels": ("diff_stats_kernel", "flat_span_kernel", "flat_residual_kernel")}
 
 
 def ptxas_summary(report):
@@ -1336,6 +1339,21 @@ def phase_scaling(results, device):
     return windows
 
 
+def flat_conv_weight(kernel, ny, off, device):
+    """The [1, 1, 3, 2 off + 1] weight of F.conv2d over a flat [BS, 1, nt, L]
+    field that computes a 3x3x3 tap table's valid residual [BS, 1, nt-2, Lo]:
+    tap (it, ix, iy) at column off + (ix - 1) Ny + (iy - 1) of row it."""
+    import itertools
+
+    import torch
+
+    w = np.zeros((1, 1, 3, 2 * off + 1), np.float32)
+    for it, ix, iy in itertools.product(range(3), repeat=3):
+        if kernel[it, ix, iy] != 0.0:   # a corner tap only where off = Ny + 1
+            w[0, 0, it, off + (ix - 1) * ny + (iy - 1)] = np.float32(kernel[it, ix, iy])
+    return torch.tensor(w, device=device)
+
+
 class forced_flat_route:
     """Within the block, `_scores_flat` takes `route` whatever
     `flat_routing_decision` says (cppre's test forces the two-kernel route
@@ -1362,10 +1380,12 @@ def phase_flat(results, device):
     3x3x3 kernel with a corner tap), MHD [100,6,20,128,128] (all five
     equations). The main path (one window per family): the flat scores and
     calibrate, by `flat_routing_decision` and again through the other route.
-    Then K10 against its plain version over the whole window (1e-5 of max),
-    K11 then K12 against K10 (bit for bit), the flat qhat against the plain
-    flat qhat (1e-3). Times K10, K11 + K12 and plain. Returns {window: launch
-    counts}."""
+    Then K10, K11 and K12 against their plain versions over the whole
+    window (1e-5 of max), K11 then K12 against K10 (bit for bit), the flat
+    qhat against the plain flat qhat (1e-3); for a tap table, F.conv2d over
+    the flat field against K11's plain version (1e-5 of max). Times K10,
+    K11, K12, K11 then K12, plain and conv2d by events, the kernels also by
+    device time. Returns {window: launch counts}."""
     import torch
     from cppre_torch.cp import calibrate
     from cppre_torch.experiments import wave
@@ -1445,7 +1465,18 @@ def phase_flat(results, device):
             del r_ref
             two = fk._flat_absdiff_stats_from_res(pf, r, res, ny, off)
             same_bits(f"K11 then K12 vs K10 {name}", two, got)
-            del two
+            two_ref = fk._flat_absdiff_stats_from_res_plain(pf, r, res, ny, off)
+            err12, rel12 = compare(f"K12 {name} |d|", two[0], two_ref[0], 1e-5)
+            compare(f"K12 {name} sum", two[1], two_ref[1], 1e-5)
+            compare(f"K12 {name} sumsq", two[2], two_ref[2], 1e-5)
+            del two, two_ref
+            library_ms = None
+            if res.kernel is not None:
+                weight = flat_conv_weight(res.kernel, ny, off, device)
+                conv = lambda: torch.nn.functional.conv2d(tf, weight)
+                compare(f"conv2d {name}", conv()[:, 0], fk._flat_residual_plain(tf, res, ny, off),
+                        1e-5)
+                library_ms = cuda_ms(conv)
             if family == "ns":
                 fields, flops = NS_FIELDS, NS_RES_FLOPS
             elif family == "wave":
@@ -1455,32 +1486,45 @@ def phase_flat(results, device):
             in_b = fields * nbytes(truth) // nvar           # one tensor's fields
             cells = got[0].numel()
             key = window if name in ("ns", "wave", "mhd-induction") else f"flat-{name}"
-            two_ms = cuda_ms(lambda: fk._flat_absdiff_stats_from_res(
-                pf, fk._flat_residual_kernel(tf, res, ny, off), res, ny, off))
+            k10 = lambda: fk._flat_paired_absdiff_stats(tf, pf, res, ny, off)
+            k11 = lambda: fk._flat_residual_kernel(tf, res, ny, off)
+            k12 = lambda: fk._flat_absdiff_stats_from_res(pf, r, res, ny, off)
+            two_kernel = lambda: fk._flat_absdiff_stats_from_res(pf, k11(), res, ny, off)
+            two_ms = cuda_ms(two_kernel)
+            dev = {n: device_ms(f) for n, f in (("K10", k10), ("K11", k11), ("K12", k12),
+                                                  ("two", two_kernel))}
             results[("K10", key)] = dict(
                 max_abs_err=err, rel_err=rel,
                 bound=bound(2 * in_b + nbytes(*got), (2 * flops + 1 + 4) * cells),
-                ms=cuda_ms(lambda: fk._flat_paired_absdiff_stats(tf, pf, res, ny, off)),
+                ms=cuda_ms(k10),
                 plain_ms=cuda_ms(lambda: fk._flat_paired_absdiff_stats_plain(tf, pf, res, ny,
                                                                              off)))
             results[("K11", key)] = dict(
                 max_abs_err=err11, rel_err=rel11, bound=bound(in_b + nbytes(r), flops * cells),
-                ms=cuda_ms(lambda: fk._flat_residual_kernel(tf, res, ny, off)),
-                plain_ms=cuda_ms(lambda: fk._flat_residual_plain(tf, res, ny, off)))
+                ms=cuda_ms(k11),
+                plain_ms=cuda_ms(lambda: fk._flat_residual_plain(tf, res, ny, off)),
+                library_ms=library_ms)
             results[("K12", key)] = dict(
-                max_abs_err=err, rel_err=rel,
+                max_abs_err=err12, rel_err=rel12,
                 bound=bound(in_b + nbytes(r, *got), (flops + 1 + 4) * cells),
-                ms=cuda_ms(lambda: fk._flat_absdiff_stats_from_res(pf, r, res, ny, off)),
+                ms=cuda_ms(k12),
                 plain_ms=cuda_ms(lambda: fk._flat_absdiff_stats_from_res_plain(pf, r, res, ny,
                                                                                off)))
+            fmt = lambda ms: "not_measured" if ms is None else f"{ms:.4f}"
             blocks, threads = fk._k10_grid(tuple(tf.shape), res, ny, off)
             report(results, "K10", key, shape=json.dumps(list(t5.shape)), off=off,
-                   route=route, two_kernel_ms=f"{two_ms:.4f}", blocks=blocks,
+                   route=route, device_ms=fmt(dev["K10"]), two_kernel_ms=f"{two_ms:.4f}",
+                   two_kernel_device_ms=fmt(dev["two"]), blocks=blocks,
                    threads_a_block=threads, k11_k12_vs_k10_bitwise=True,
                    qhat=f"{float(qhats[name]):.6e}", qhat_vs_plain=f"{q_rel:.3e}",
                    qhat_routes_bitwise=True)
-            report(results, "K11", key)
-            report(results, "K12", key)
+            g11 = fk._k11_grid(tuple(tf.shape), res, ny, off)
+            report(results, "K11", key, device_ms=fmt(dev["K11"]), route=g11["route"],
+                   blocks=g11["blocks"], threads_a_block=g11["threads"], span=g11["span"],
+                   spans=g11["spans"], smem_bytes=g11["smem"], frames_a_block=g11["frames"])
+            blocks, threads = fk._k12_grid(tuple(tf.shape), res, ny, off)
+            report(results, "K12", key, device_ms=fmt(dev["K12"]), blocks=blocks,
+                   threads_a_block=threads)
             del got, r
         say("flat", family=family, path_s=f"{t_path:.3f}",
             launches=json.dumps(windows[window], separators=(",", ":")))
@@ -1518,7 +1562,7 @@ def main():
                     and (info.get("spill_stores") or info.get("spill_loads"))):
                 spilled.append(fn)
     if spilled:
-        raise AssertionError(f"ptxas spills registers in K1-K10: {spilled}")
+        raise AssertionError(f"ptxas spills registers in K1-K12: {spilled}")
 
     device = torch.device("cuda", 0)
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()

@@ -1,5 +1,5 @@
 // The walk of K1 over the batch, shared by stencil_kernels.cu (K1, and the
-// helpers K9 takes from it) and flat_kernels.cu (K10).
+// helpers K9 takes from it) and flat_kernels.cu (K10, K12).
 //
 // K1 (_joint_cp_diff_stats) and K10 (_flat_paired_absdiff_stats) compute
 // the same thing on two index maps: the diff d = PRE(truth) - PRE(pred) of
@@ -22,6 +22,15 @@
 // ptxas gave K10's cells other register counts: 12 B spilled at MHD energy
 // with 4 samples in flight, 101 registers at NS (PERF.md). One body, so
 // K10's moments are K1's walk and fold to the bit.
+//
+// K12 (_flat_absdiff_stats_from_res) is K10 with the truth's side read, not
+// computed: its diff element (`AbsDiffFromRes`, `ReadsResidual`) makes the
+// walk load the truth's residual [BS, ot, Lo] (K11's output) at the
+// sample's (t, j), which the walk's id and ncell already index, in place of
+// the truth's cell. The prediction's cell, the walk, its groups and the
+// fold are K10's, so K11 then K12 gives K10's bits; it never runs the
+// centred pass. The choice is made at compile time, so K1's and K10's
+// instances compile as they did.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -55,9 +64,20 @@ struct AbsDiff {
     float v;
 };
 __device__ __forceinline__ void store(AbsDiff* p, float v) { p->v = fabsf(v); }
+// K12's diff element: |d| as K10 stores it, d = the truth's residual read
+// from memory - the prediction's cell.
+struct AbsDiffFromRes {
+    float v;
+};
+__device__ __forceinline__ void store(AbsDiffFromRes* p, float v) { p->v = fabsf(v); }
+template <typename DiffT>
+struct ReadsResidual : std::false_type {};
+template <>
+struct ReadsResidual<AbsDiffFromRes> : std::true_type {};
 // A float32 store read back (K1's centred pass).
 __device__ __forceinline__ float stored(const float* p) { return *p; }
 __device__ __forceinline__ float stored(const AbsDiff* p) { return p->v; }
+__device__ __forceinline__ float stored(const AbsDiffFromRes* p) { return p->v; }
 
 // The mean of n values from their sum, as the score epilogue forms it on
 // the card (PyTorch divides a float tensor by a scalar as a multiply by the
@@ -153,10 +173,12 @@ size_t diff_stats_smem_bytes(int lanes, int u) {
     return lanes > 1 ? sizeof(float) * 2 * (size_t)lanes * u * kDiffCells : 0;
 }
 
-// Whether an instance compiles the centred pass out: no K1 instance does;
-// flat_kernels.cu names the K10 cells that do.
+// Whether an instance compiles the centred pass out: no K1 instance does,
+// every K12 instance does; flat_kernels.cu names the K10 cells that do.
 template <class Cell, typename DiffT>
 struct SkipsCentred : std::false_type {};
+template <class Cell>
+struct SkipsCentred<Cell, AbsDiffFromRes> : std::true_type {};
 
 // 1-D grid of ot x Map::blocks(g) blocks of kDiffCells x lanes threads
 // (K10: ox = 1, oy = Lo, `FlatBandCells`); block i holds frame i % ot, so
@@ -165,8 +187,8 @@ struct SkipsCentred : std::false_type {};
 // them; with one lane it folds them into its sums itself, in sample order.
 // m2 (may be null) receives the centred sum of squares, from a second walk
 // in the same groups: each thread's own float32 stores read back, or for a
-// bfloat16 diff the diffs recomputed from the inputs (K10 never asks for
-// it).
+// bfloat16 diff the diffs recomputed from the inputs (K10 and K12 never
+// ask for it). K12's `truth` is the truth's residual [BS, ot, Lo].
 template <class Cell, typename DiffT, int U, class Map = PlaneCells>
 __global__ void __launch_bounds__(kDiffCells * kDiffMaxLanes)
 diff_stats_kernel(const float* __restrict__ truth, const float* __restrict__ pred,
@@ -193,7 +215,11 @@ diff_stats_kernel(const float* __restrict__ truth, const float* __restrict__ pre
     const auto& rc = at_row(cell, x);   // JOREK's R and 1/R of this row, once
     auto diff_of = [&](int b) {
         const long long off = (long long)b * g.sample;
-        return rc(truth + off, g, t, x, y) - rc(pred + off, g, t, x, y);
+        if constexpr (ReadsResidual<DiffT>::value) {
+            return __ldg(truth + (long long)b * ncell + id) - rc(pred + off, g, t, x, y);
+        } else {
+            return rc(truth + off, g, t, x, y) - rc(pred + off, g, t, x, y);
+        }
     };
     auto again = [&](int b) {
         if constexpr (std::is_same<DiffT, __nv_bfloat16>::value) {

@@ -19,7 +19,14 @@ One CUDA source (`csrc/flat_kernels.cu`) holds the three; they call the
 cells of `csrc/stencil_cells.cuh` (K1's), so K11 then K12 gives K10's bits.
 K10 is K1's kernel (`csrc/diff_stats.cuh`) on the flat index map, storing
 |d|: K1's walk over the batch, its samples in flight and lanes, its fold,
-and a 7-tap table by value (`_k10_grid` reports its launch).
+and a 7-tap table by value (`_k10_grid` reports its launch). K12 is the
+same walk with the truth's residual read in place of its cell
+(`_k12_grid`). K11 gives a block one sample and a span of consecutive flat
+outputs and marches the output frames, each frame's span of inputs (one
+contiguous flat range) copied once into a ring in shared memory; its tap
+table is built for the ring's strides. For the six-variable MHD cells, and
+where the ring would not fit (rows of some thousand floats), it runs its
+first design, one thread an output (`_k11_grid`).
 The plain versions evaluate the same math as shifted slices of the flat
 layout (`_flat_ops`), as cppre's `_ns_momentum_flat`, `_mhd_flat` and
 `_composite_flat` do.
@@ -151,14 +158,20 @@ def _flat_absdiff_stats_from_res_plain(pred, res_out, res: _Residual, ny: int, o
 
 
 def _launch(which, a, b, out, s, sq, res: _Residual, ny: int, off: int, what: str):
-    """K11 (which 11) or K12 (12)."""
+    """K11 (which 11; its tap table at the strides `_k11_grid` names) or
+    K12 (12)."""
     bs, nvar, nt, L = a.shape
-    cell, tables = _cell_args(res, (L // ny, ny), a.device)
-    lib = _build.library("flat_kernels")
-    fn = _build.declare(lib, "cppre_flat_kernel",
-                        [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_CELL_TYPES, _P])
-    ptr = lambda t: None if t is None else t.data_ptr()
+    plane = None
     with torch.cuda.device(a.device):
+        if which == 11:
+            geom = _k11_grid(tuple(a.shape), res, ny, off)
+            plane = geom["slot"] if geom["route"] == "span" else None
+        cell, tables = _cell_args(res, (L // ny, ny), a.device, by_value=True, plane=plane)
+        lib = _build.library("flat_kernels")
+        fn = _build.declare(lib, "cppre_flat_kernel",
+                            [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *_CELL_TYPES,
+                             *_BY_VALUE_TYPES, _P])
+        ptr = lambda t: None if t is None else t.data_ptr()
         rc = fn(which, cell[0], a.data_ptr(), ptr(b), out.data_ptr(), ptr(s), ptr(sq),
                 bs, nvar, nt, L // ny, ny, off, *cell[1:], _build.stream_of(a))
     _build.check(lib, rc, what)
@@ -180,20 +193,53 @@ def _launch_paired(truth, pred, out, s, sq, res: _Residual, ny: int, off: int, w
     _build.check(lib, rc, what)
 
 
+def _paired_grid(shape, res: _Residual, ny: int, off: int, from_res: int, what: str):
+    bs, nvar, nt, L = shape
+    n = 0 if res.kernel is None else int(np.count_nonzero(res.kernel))
+    lib = _build.library("flat_kernels")
+    fn = _build.declare(lib, "cppre_flat_paired_grid", [_I] * 10 + [_P])
+    grid = (ctypes.c_longlong * 2)()
+    by_value = int(n > 0 and _taps_by_value(n))
+    _build.check(lib, fn(res.kind, bs, nvar, nt, L // ny, ny, off, n, by_value, from_res, grid),
+                 what)
+    return int(grid[0]), int(grid[1])
+
+
 def _k10_grid(shape, res: _Residual, ny: int, off: int):
     """(blocks, threads a block) of the K10 launch for flat [BS, nvar, nt, L]
     inputs: K1's 64 cells a block over the flat window of each output frame,
     1 to 4 threads a cell, as many as keep every block resident at once on
     this card, in groups of at most 8 samples."""
+    return _paired_grid(shape, res, ny, off, 0, "K10 grid")
+
+
+def _k12_grid(shape, res: _Residual, ny: int, off: int):
+    """(blocks, threads a block) of the K12 launch for a flat [BS, nvar, nt,
+    L] prediction: K10's blocks, with K12's samples in flight and lanes."""
+    return _paired_grid(shape, res, ny, off, 1, "K12 grid")
+
+
+_K11_GEOM = ("route", "blocks", "threads", "span", "spans", "slot", "slots", "rings", "smem",
+             "frames", "chunks")
+
+
+def _k11_grid(shape, res: _Residual, ny: int, off: int):
+    """K11's launch for flat [BS, nvar, nt, L] fields on this card, from the
+    library: route ('span', or 'thread' for the six-variable MHD cells and
+    where the ring does not fit a block's shared memory), blocks, threads a
+    block, span (outputs of a frame a block takes), spans of the window,
+    slot (floats of a ring slot, the frame stride its tap table is built
+    for), slots a ring, rings (one a variable from the first to the last the
+    cell reads), smem (bytes), frames (output frames a block marches) and
+    chunks (of the output frames)."""
     bs, nvar, nt, L = shape
-    n = 0 if res.kernel is None else int(np.count_nonzero(res.kernel))
     lib = _build.library("flat_kernels")
-    fn = _build.declare(lib, "cppre_flat_paired_grid", [_I] * 9 + [_P])
-    grid = (ctypes.c_longlong * 2)()
-    by_value = int(n > 0 and _taps_by_value(n))
-    _build.check(lib, fn(res.kind, bs, nvar, nt, L // ny, ny, off, n, by_value, grid),
-                 "K10 grid")
-    return int(grid[0]), int(grid[1])
+    fn = _build.declare(lib, "cppre_flat_residual_geom", [_I] * 7 + [_P])
+    geom = (ctypes.c_longlong * len(_K11_GEOM))()
+    _build.check(lib, fn(res.kind, bs, nvar, nt, L // ny, ny, off, geom), "K11 geometry")
+    out = dict(zip(_K11_GEOM, (int(v) for v in geom)))
+    out["route"] = "span" if out["route"] else "thread"
+    return out
 
 
 def _outputs(like, bs, nt, lo, moments=True):
@@ -273,13 +319,17 @@ def flat_routing_decision(shape) -> str:
     inputs: 'paired' (K10) or 'two_kernel' (K11, then K12). A pure function
     of the shape. K10 at every shape: K1's walk reads the two tensors' taps
     once where K11 then K12 write and re-read the truth's residual. On an
-    H100 (device ms, PERF.md) it was faster at NS [100, 3, 21, 100, 100]
-    (0.32 vs 0.49), wave [1000, 20, 64, 64] (0.56 vs 2.14) and at MHD [100,
-    6, 20, 128, 128] for induction, the MHD configuration's equation (0.60
-    vs 0.90), continuity, energy (0.69 vs 0.73) and gauss. At momentum, not
-    a configured equation, K10 trails by 1 % (0.780 vs 0.774; 4 % by
-    events). Where cppre routes by its VMEM estimates, which have no
-    counterpart here, the two routes give the same bits."""
+    H100 (device ms, median of four turns, with K11's span kernel and K12 on
+    K10's walk; PERF.md) K10 was faster at NS [100, 3, 21, 100, 100] (0.316 vs 0.377),
+    at wave [1000, 20, 64, 64] for the experiment's 7-tap composite kernel
+    (0.552 vs 0.662) and at MHD [100, 6, 20, 128, 128] for induction, the
+    MHD configuration's equation (0.598 vs 0.704), continuity, energy and
+    gauss. K11 then K12 was ahead in every turn only for cells that share
+    those shapes with them: a 9-tap kernel with a corner tap at the wave
+    shape (1.268 vs 1.328) and MHD momentum (0.775 vs 0.778); routing the
+    shape would cost its configured cell more. Where cppre routes by its
+    VMEM estimates, which have no counterpart here, the two routes give
+    the same bits."""
     return "paired"
 
 

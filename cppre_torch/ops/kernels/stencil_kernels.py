@@ -303,17 +303,18 @@ def _taps_cell(kernel):
 
 
 @functools.lru_cache(maxsize=64)
-def _tap_table(kernel_bytes, k, dtype, nx, ny):
+def _tap_table(kernel_bytes, k, dtype, nx, ny, plane=None):
     """The non-zero taps of a [k, k, k] kernel in `_taps` order
     (itertools.product, zeros dropped): int32 linear offsets for an
-    [Nt, Nx, Ny] field (or a window of those strides) and float32 weights,
-    as read-only numpy arrays. K1 and K8 pass this host table by value where
-    its count has an instance (`_taps_by_value`); the other kernels, and
-    those two for any other count, read its device copy
-    (`_tap_table_device`)."""
+    [Nt, Nx, Ny] field (or a window of those strides; frames `plane`
+    floats apart where given, else Nx Ny) and float32 weights, as read-only
+    numpy arrays. K1 and K8 pass this host table by value where its count
+    has an instance (`_taps_by_value`); the other kernels, and those two for
+    any other count, read its device copy (`_tap_table_device`)."""
     kernel = np.frombuffer(kernel_bytes, dtype=dtype).reshape(k, k, k)
     taps = [idx for idx in itertools.product(range(k), repeat=3) if kernel[idx] != 0.0]
-    off = np.array([it * nx * ny + ix * ny + iy for it, ix, iy in taps], np.int32)
+    plane = nx * ny if plane is None else plane
+    off = np.array([it * plane + ix * ny + iy for it, ix, iy in taps], np.int32)
     w = np.array([kernel[idx] for idx in taps], np.float32)
     off.setflags(write=False)
     w.setflags(write=False)
@@ -321,9 +322,9 @@ def _tap_table(kernel_bytes, k, dtype, nx, ny):
 
 
 @functools.lru_cache(maxsize=32)
-def _tap_table_device(kernel_bytes, k, dtype, nx, ny, device):
+def _tap_table_device(kernel_bytes, k, dtype, nx, ny, plane, device):
     """`_tap_table` on `device`."""
-    off, w = _tap_table(kernel_bytes, k, dtype, nx, ny)
+    off, w = _tap_table(kernel_bytes, k, dtype, nx, ny, plane)
     return (torch.tensor(off.tolist(), dtype=torch.int32, device=device),
             torch.tensor(w.tolist(), dtype=torch.float32, device=device))
 
@@ -342,18 +343,19 @@ def _rows_table(rows_bytes, device):
     return torch.tensor(np.frombuffer(rows_bytes, dtype=np.float32), device=device)
 
 
-def _cell_args(res: _Residual, shape, device, by_value: bool = False):
+def _cell_args(res: _Residual, shape, device, by_value: bool = False, plane=None):
     """The cell arguments of the C interface (`_CELL_TYPES` after the
     kind): kind, the five NS constants, the tap table (device pointers and
     count, 0 for the other cells), JOREK's rows table and (D, K); with
     `by_value` (K1, K8), then the host table's two pointers (`_BY_VALUE_TYPES`),
     set where the kernel takes the table by value, when the device table is
     not made. Also the tables, which the caller holds over the launch. The
-    tap table is built for the strides of shape[-2:]."""
+    tap table is built for the strides of shape[-2:] (frames `plane` floats
+    apart where given: K11's ring)."""
     tables, taps, rows, host = (), (None, None, 0), (None, 0.0, 0.0), (None, None)
     if res.kernel is not None:
         kern = np.ascontiguousarray(res.kernel)
-        key = (kern.tobytes(), res.k, kern.dtype.str, shape[-2], shape[-1])
+        key = (kern.tobytes(), res.k, kern.dtype.str, shape[-2], shape[-1], plane)
         off, w = _tap_table(*key)
         if by_value and _taps_by_value(off.size):
             tables, taps, host = (off, w), (None, None, off.size), (off.ctypes.data, w.ctypes.data)

@@ -891,17 +891,19 @@ def _k10_tail_case(name, bs, dev):
 @pytest.mark.parametrize("bs", [1, 2, 7, 13])
 @pytest.mark.parametrize("name", K10_TAIL_CELLS)
 def test_k10_batch_tails_equal_the_two_kernel_route(dev, name, bs):
-    """K10 walks the batch in K1's groups (U samples a thread, up to 4
-    threads a cell): at batch sizes that end a group early its |d|, sum and
-    sumsq equal K11 then K12 bit for bit, and its plain version within 1e-5
-    of max."""
+    """K10 and K12 walk the batch in K1's groups (U samples a thread, up to
+    4 threads a cell): at batch sizes that end a group early K10's |d|, sum
+    and sumsq equal K11 then K12 bit for bit, and each kernel's its plain
+    version within 1e-5 of max."""
     tf, pf, cell, ny, off = _k10_tail_case(name, bs, dev)
     got = fk._flat_paired_absdiff_stats(tf, pf, cell, ny, off)
-    two = fk._flat_absdiff_stats_from_res(pf, fk._flat_residual_kernel(tf, cell, ny, off), cell,
-                                          ny, off)
+    r = fk._flat_residual_kernel(tf, cell, ny, off)
+    two = fk._flat_absdiff_stats_from_res(pf, r, cell, ny, off)
     assert all(torch.equal(a, b) for a, b in zip(got, two))
-    for g, r in zip(got, fk._flat_paired_absdiff_stats_plain(tf, pf, cell, ny, off)):
-        _close(g, r, 1e-5)
+    for g, ref in zip(got, fk._flat_paired_absdiff_stats_plain(tf, pf, cell, ny, off)):
+        _close(g, ref, 1e-5)
+    for g, ref in zip(two, fk._flat_absdiff_stats_from_res_plain(pf, r, cell, ny, off)):
+        _close(g, ref, 1e-5)
 
 
 def test_k10_grid_is_k1s_on_the_flat_window(dev):
@@ -912,6 +914,136 @@ def test_k10_grid_is_k1s_on_the_flat_window(dev):
     assert blocks == 18 * -(-(64 * 64 - 128) // 64) and threads in (64, 128, 192, 256)
     ns = sk._ns_cell(*ARGS)
     assert fk._k10_grid((100, 3, 21, 100 * 100), ns, 100, 100) == (19 * -(-9800 // 64), 64)
+
+
+def test_k12_grid_is_k10s(dev):
+    """K12 launches K10's blocks (K1's 64-cell blocks over the flat window,
+    two-row bands where Ny % 64 != 0), 1 to 4 threads a cell in groups of at
+    most 8 samples."""
+    for shape, cell, ny in (((1000, 1, 20, 64 * 64), sk._taps_cell(_wave_kernel()), 64),
+                            ((100, 3, 21, 100 * 100), sk._ns_cell(*ARGS), 100),
+                            ((100, 6, 20, 128 * 128), sk._mhd_cell("induction"), 128),
+                            ((7, 1, 7, 13 * 37), sk._taps_cell(_wave_kernel(corner=True)), 37)):
+        off = ny if cell.kernel is None else fk._composite_off(cell.kernel, ny)
+        blocks, threads = fk._k12_grid(shape, cell, ny, off)
+        assert blocks == fk._k10_grid(shape, cell, ny, off)[0]
+        assert threads in (64, 128, 192, 256)
+
+
+# (name, cell, [BS, nvar, nt, Nx, Ny]): K11's spans at ragged shapes
+K11_SPAN_CASES = [
+    ("ns-ny37", "ns", (3, 3, 7, 13, 37)),                       # 4-byte copies
+    ("ns-ny36", "ns", (2, 3, 9, 12, 36)),                       # 16-byte copies
+    ("taps7-bs1-ot1", "taps7", (1, 1, 3, 12, 36)),              # one sample, one frame
+    ("taps9-corner", "taps9", (2, 1, 9, 13, 37)),               # off = Ny + 1
+    ("mhd-induction-ragged-span", "mhd-induction", (2, 6, 6, 30, 41)),
+    ("mhd-induction-span-ends-mid-row", "mhd-induction", (2, 6, 9, 30, 45)),
+    ("mhd-gauss", "mhd-gauss", (3, 6, 5, 17, 40)),
+    ("mhd-momentum-six-variables", "mhd-momentum", (2, 6, 6, 30, 41)),   # the first design
+    ("ns-wide-rows", "ns", (1, 3, 4, 3, 1400)),                          # the first design
+]
+
+
+def _k11_case(cell_name, shape, dev):
+    bs, nvar, nt, nx, ny = shape
+    if cell_name == "ns":
+        t, cell, off = _randn(shape, 86, dev), sk._ns_cell(*ARGS), ny
+    elif cell_name.startswith("taps"):
+        kern = _wave_kernel(corner=cell_name == "taps9")
+        t, cell, off = _randn(shape, 86, dev), sk._taps_cell(kern), fk._composite_off(kern, ny)
+    else:
+        t, cell, off = _mhd(shape, 86, dev), sk._mhd_cell(cell_name[4:]), ny
+    p = t + 0.1 * _randn(shape, 87, dev)
+    flat = lambda a: a.reshape(bs, nvar, nt, nx * ny)
+    return flat(t), flat(p), cell, ny, off
+
+
+@pytest.mark.parametrize("name,cell_name,shape", K11_SPAN_CASES, ids=[c[0] for c in K11_SPAN_CASES])
+def test_k11_spans_at_ragged_shapes(dev, name, cell_name, shape):
+    """K11 against its plain version (1e-5 of max) and K11 then K12 against
+    K10 bit for bit, where Ny is not a multiple of 4 (4-byte copies), the
+    window has a corner tap (off = Ny + 1), the window is not a whole
+    number of spans, a span ends within a row, one sample has one output
+    frame; and on the first design, for a six-variable cell and for rows
+    too wide for the ring."""
+    tf, pf, cell, ny, off = _k11_case(cell_name, shape, dev)
+    geom = fk._k11_grid(tuple(tf.shape), cell, ny, off)
+    lo = tf.shape[-1] - 2 * off
+    first = name.endswith(("wide-rows", "six-variables"))
+    assert geom["route"] == ("thread" if first else "span")
+    if name.endswith("ragged-span"):
+        assert geom["spans"] > 1 and lo % geom["span"] != 0
+    if name.endswith("mid-row"):
+        assert geom["spans"] > 1 and geom["span"] % ny != 0
+    before = K.launch_counts()["K11"]
+    r = fk._flat_residual_kernel(tf, cell, ny, off)
+    assert K.launch_counts()["K11"] == before + 1
+    _close(r, fk._flat_residual_plain(tf, cell, ny, off), 1e-5)
+    two = fk._flat_absdiff_stats_from_res(pf, r, cell, ny, off)
+    assert all(torch.equal(a, b)
+               for a, b in zip(two, fk._flat_paired_absdiff_stats(tf, pf, cell, ny, off)))
+    for g, ref in zip(two, fk._flat_absdiff_stats_from_res_plain(pf, r, cell, ny, off)):
+        _close(g, ref, 1e-5)
+
+
+# (name, cell, [BS, nvar, nt, Nx, Ny]): batches with as many spans as two
+# blocks an SM of the card, or half as many, so each block marches its
+# frames through the ring (the small shapes above take one frame a block)
+K11_MARCH_CASES = [
+    ("ns-4-byte-copies", "ns", (33, 3, 12, 90, 101)),
+    ("ns-16-byte-copies", "ns", (33, 3, 12, 90, 100)),
+    ("taps9-corner", "taps9", (264, 1, 12, 40, 41)),
+    ("mhd-induction-chunks", "mhd-induction", (66, 6, 9, 30, 45)),
+]
+
+
+@pytest.mark.parametrize("name,cell_name,shape", K11_MARCH_CASES,
+                         ids=[c[0] for c in K11_MARCH_CASES])
+def test_k11_marches_its_frames_through_the_ring(dev, name, cell_name, shape):
+    """K11 where a block marches several output frames, its ring wrapping
+    (MHD induction in two chunks of frames, the second shorter): against its
+    plain version (1e-5 of max), K11 then K12 against K10 bit for bit; for
+    NS also fields that start 4 bytes into their storage (4-byte copies of
+    rows that are multiples of 4), which give the aligned fields' bits."""
+    tf, pf, cell, ny, off = _k11_case(cell_name, shape, dev)
+    geom = fk._k11_grid(tuple(tf.shape), cell, ny, off)
+    assert geom["route"] == "span" and geom["frames"] >= 4
+    if name.endswith("chunks"):
+        assert geom["chunks"] == 2 and (shape[2] - 2) % geom["frames"] != 0
+    r = fk._flat_residual_kernel(tf, cell, ny, off)
+    _close(r, fk._flat_residual_plain(tf, cell, ny, off), 1e-5)
+    two = fk._flat_absdiff_stats_from_res(pf, r, cell, ny, off)
+    assert all(torch.equal(a, b)
+               for a, b in zip(two, fk._flat_paired_absdiff_stats(tf, pf, cell, ny, off)))
+    if cell_name == "ns":
+        shifted = torch.empty(tf.numel() + 1, device=dev)[1:].view(tf.shape)
+        shifted.copy_(tf)
+        assert torch.equal(fk._flat_residual_kernel(shifted, cell, ny, off), r)
+
+
+def test_k11_grid(dev):
+    """K11's spans: the longest whose ring of 7 slots a variable (3 + 2
+    frames, and the two frames at the wrap copied again) keeps two blocks on
+    an SM, then equal spans over the window; 256 threads a block, one
+    sample a block marching every output frame at the flagship shapes. The
+    six-variable cells, and rows too wide for the ring, take the first
+    design: one thread an output, 128 a block."""
+    ns = fk._k11_grid((100, 3, 21, 100 * 100), sk._ns_cell(*ARGS), 100, 100)
+    assert ns["route"] == "span" and (ns["slots"], ns["rings"], ns["threads"]) == (7, 3, 256)
+    assert ns["spans"] * ns["span"] >= 9800 > (ns["spans"] - 1) * ns["span"]
+    assert ns["slot"] >= ns["span"] + 2 * 100 + 2 and ns["slot"] % 4 == 0
+    assert ns["smem"] == 4 * 7 * 3 * ns["slot"] and 2 * (ns["smem"] + 1024) <= 228 * 1024
+    assert (ns["frames"], ns["chunks"], ns["blocks"]) == (19, 1, 100 * ns["spans"])
+    ind = fk._k11_grid((100, 6, 20, 128 * 128), sk._mhd_cell("induction"), 128, 128)
+    assert ind["rings"] == 5 and 2 * (ind["smem"] + 1024) <= 228 * 1024
+    wave = fk._k11_grid((1000, 1, 20, 64 * 64), sk._taps_cell(_wave_kernel()), 64, 64)
+    assert wave["rings"] == 1 and wave["span"] <= 2048
+    six = fk._k11_grid((100, 6, 20, 128 * 128), sk._mhd_cell("energy"), 128, 128)
+    assert (six["route"], six["rings"]) == ("thread", 6)
+    assert six["blocks"] == -(-(100 * 18 * 126 * 128) // 128)
+    wide = fk._k11_grid((1, 3, 4, 3 * 1400), sk._ns_cell(*ARGS), 1400, 1400)
+    assert (wide["route"], wide["threads"]) == ("thread", 128)
+    assert wide["blocks"] == -(-(2 * 1400) // 128)
 
 
 K3_RAGGED_CELLS = ["ns", "mhd-induction", "taps7", "jorek-continuity"]

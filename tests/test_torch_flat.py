@@ -47,8 +47,8 @@ def _pair(seed, shape, rho=False):
 def _case(name):
     """(truth, prediction) [BS, nvar, nt, nx, ny], the port's cell, cppre's
     flat math for one [nvar, nt, L] block, and the window's margin."""
-    if name == "ns":
-        t, p = _pair(11, (6, 3, 8, 16, 24))
+    if name in ("ns", "ns-odd-ny"):
+        t, p = _pair(11, (6, 3, 8, 16, 24)) if name == "ns" else _pair(12, (5, 3, 7, 11, 37))
         nt, nx, ny = t.shape[2:]
         return (t, p, sk._ns_cell(*NS_ARGS),
                 lambda f: jfk._ns_momentum_flat(f, nt, ny, (nx - 2) * ny, *NS_ARGS), ny)
@@ -71,10 +71,11 @@ def _flat(a):
     return a.reshape(a.shape[:3] + (-1,))
 
 
-@pytest.mark.parametrize("name", ["ns", "mhd-induction", "wave", "wave-corner"])
+@pytest.mark.parametrize("name", ["ns", "ns-odd-ny", "mhd-induction", "wave", "wave-corner"])
 def test_flat_paired_kernel_matches_cppre(name):
     """K10's |d|, sum and sumsq over the whole window, y-wrap columns
-    included; K11 then K12 give K10's bits."""
+    included, also where Ny is odd (the card tests' ragged rows); K11 then
+    K12 give K10's bits."""
     t, p, res, jmath, off = _case(name)
     ny = t.shape[-1]
     tt, tp = torch.tensor(_flat(t)), torch.tensor(_flat(p))

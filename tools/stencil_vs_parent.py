@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Hold this checkout's K1, K2, K3, K8, K9 and K10 bit for bit against another
-checkout's, and time both in turns on one CUDA card.
+"""Hold this checkout's K1, K2, K3, K8, K9, K10, K11 and K12 bit for bit
+against another checkout's, and time both in turns on one CUDA card.
 
-    python3 tools/stencil_vs_parent.py PARENT_DIR [--only k1,k2,k3,k8,k9,k10]
+    python3 tools/stencil_vs_parent.py PARENT_DIR [--only k1,k2,k3,k8,k9,k10,k11,k12]
 
 PARENT_DIR holds another checkout's `cppre_torch/` (for example the parent
 commit unpacked with `git archive <commit> cppre_torch | tar -x -C DIR`).
@@ -21,39 +21,43 @@ seeded fields:
   against the parent's K3 and this checkout's K1; K10's |d|, sum and sumsq
   at the flat NS, wave (the composite kernel and one with a corner tap) and
   the five MHD equations' shapes, against the parent's K10 and this
-  checkout's K11 then K12. Each line says `equal=True` or names what
-  differs.
+  checkout's K11 then K12; at the same shapes K11's residual and K12's
+  |d|, sum and sumsq (on this checkout's K11 output) against the parent's.
+  Each line says `equal=True` or names what differs.
 - turns: K1 uncentred and centred at the eight shapes, K8 in both forms,
   K2 at each of its instances above (the NS one on a prepared contiguous
   tensor, as `chip_smoke.py` times it), K9 at its two shapes beside the
   two-pass route (K1 centred and the score epilogue, this checkout's), K3
   at its five shapes (t_block 5) beside this checkout's K1, K10 at its
-  eight shapes beside this checkout's K11 then K12, each timed
+  eight shapes beside this checkout's K11 then K12, K11 and K12 at the
+  same shapes, each timed
   (`chip_smoke.cuda_ms`, median of 15 CUDA-event-timed calls) in the order
   parent, change, change, parent, change, parent, parent, change, with the
   blocks each launches and the card's SM clock, temperature and power after
-  its turns; K2, K3, K9 and K10 also by their device time
+  its turns; K2, K3, K9, K10, K11 and K12 also by their device time
   (`chip_smoke.device_ms`, torch.profiler over 20 calls; None where the
   profiler lost records), which leaves out the host's launch time that the
   events around one call hold. Then the routed scores that could take K3
   (MHD induction and JOREK continuity at their grid-scaling shapes and at
   a batch of 32), with the route forced to K3 and to K1: bitwise, and
   turns of both routes and of the centred K3 and K1 alone, by events.
-- ptxas: registers and spill bytes of both checkouts' K1, K2, K3, K8, K9
-  and K10 kernels (`diff_stats_kernel`, `residual_window_kernel`,
+- ptxas: registers and spill bytes of both checkouts' K1, K2, K3, K8, K9,
+  K10, K11 and K12 kernels (`diff_stats_kernel`, `residual_window_kernel`,
   `diff_stats_chunked_kernel`, `stencil_march_kernel`,
   `scores_stash_kernel`, `scores_single_pass_kernel`, and in
-  `flat_kernels` `diff_stats_kernel` or the parent's `flat_paired_kernel`),
-  and a `[ptxas-diff]` line naming the K1, K2, K8 and K9 instances whose
-  registers or spills differ between the two.
-- sass: in each checkout's K1 and K10 kernels, the FFMAs whose two factors
+  `flat_kernels` `diff_stats_kernel` (K10, K12), `flat_span_kernel` and
+  `flat_residual_kernel` (K11), or an older checkout's `flat_paired_kernel`
+  and `flat_from_res_kernel`), and a `[ptxas-diff]` line naming the K1,
+  K2, K8, K9 and K10 instances (those in both checkouts) whose registers
+  or spills differ between the two.
+- sass: in each checkout's K1, K10 and K12 kernels, the FFMAs whose two factors
   are one register (the q += d * d of the sum of squares), from
   `cuobjdump -sass`.
 
 Prints the card's name and power limit first. Exits 1 if any output
 differs from the parent's, K3 from K1 (or its routed scores from K1's),
-K10 from K11 then K12, or a K1, K2, K3, K8, K9 or K10 kernel of this
-checkout spills. Needs one card.
+K10 from K11 then K12, or a K1, K2, K3, K8, K9, K10, K11 or K12 kernel of
+this checkout spills. Needs one card.
 """
 
 from __future__ import annotations
@@ -72,14 +76,18 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TURNS = ("parent", "change", "change", "parent", "change", "parent", "parent", "change")
 # the kernel bodies of each library whose ptxas lines print (K1, K2, K3, K8,
-# K9; K10, and the parent's K10); those of K1, K2, K8 and K9 are compared
+# K9; K10, K11 and K12, and older checkouts' K10-K12); the instances of K1,
+# K2, K8, K9 and K10 that both checkouts build are compared
 BODIES = {"stencil_kernels": ("diff_stats_kernel", "stencil_march_kernel",
                               "residual_window_kernel", "scores_stash_kernel",
                               "scores_single_pass_kernel", "diff_stats_chunked_kernel"),
-          "flat_kernels": ("diff_stats_kernel", "flat_paired_kernel")}
-UNCHANGED = ("diff_stats_kernel", "stencil_march_kernel", "residual_window_kernel",
-             "scores_stash_kernel", "scores_single_pass_kernel")
-KERNELS = ("k1", "k2", "k3", "k8", "k9", "k10")
+          "flat_kernels": ("diff_stats_kernel", "flat_span_kernel", "flat_residual_kernel",
+                           "flat_paired_kernel", "flat_from_res_kernel")}
+UNCHANGED = {"stencil_kernels": ("diff_stats_kernel", "stencil_march_kernel",
+                                 "residual_window_kernel", "scores_stash_kernel",
+                                 "scores_single_pass_kernel"),
+             "flat_kernels": ("diff_stats_kernel",)}
+KERNELS = ("k1", "k2", "k3", "k8", "k9", "k10", "k11", "k12")
 
 
 def load(path):
@@ -184,7 +192,7 @@ def turns(cs, run, timer=None):
 
 def ptxas_lines(cs, pkg, bad):
     """Print both checkouts' ptxas figures of the kernel bodies; a spill in
-    this checkout's is a failure; name the K1, K2, K8 and K9 instances
+    this checkout's is a failure; name the K1, K2, K8, K9 and K10 instances
     whose figures differ between the two."""
     seen = {}
     for who in ("parent", "change"):
@@ -199,14 +207,14 @@ def ptxas_lines(cs, pkg, bad):
                     bad.append(f"spill in {lib} {fn}")
     moved = sorted(f"{fn}: {info} -> {seen.get(('change', lib, fn))}"
                    for (who, lib, fn), info in seen.items()
-                   if who == "parent" and lib == "stencil_kernels"
-                   and fn.split("<")[0] in UNCHANGED and seen.get(("change", lib, fn)) != info)
-    print(f"[ptxas-diff] k1_k2_k8_k9_instances_that_differ={json.dumps(moved)}", flush=True)
+                   if who == "parent" and fn.split("<")[0] in UNCHANGED[lib]
+                   and seen.get(("change", lib, fn)) != info)
+    print(f"[ptxas-diff] k1_k2_k8_k9_k10_instances_that_differ={json.dumps(moved)}", flush=True)
 
 
 def sass_lines(cs, pkg):
-    """In each checkout's K1 and K10 kernels, the FFMAs whose two factors are
-    one register (q += d * d)."""
+    """In each checkout's K1, K10 and K12 kernels, the FFMAs whose two
+    factors are one register (q += d * d)."""
     tool = os.path.join(os.path.dirname(pkg["change"]["build"]._nvcc()), "cuobjdump")
     for who in ("parent", "change"):
         for lib in ("stencil_kernels", "flat_kernels"):
@@ -338,12 +346,14 @@ def k3_route_lines(cs, pkg, dev, bad):
             del truth, pred
 
 
-def k10_lines(cs, pkg, wave_kern, dev, bad):
-    """K10 at the flat shapes: bitwise against the parent and against this
-    checkout's K11 then K12, then turns beside K11 then K12, by events and
-    device time."""
+def flat_lines(cs, pkg, wave_kern, dev, bad, only):
+    """K10, K11 and K12 at the flat shapes: K10 bitwise against the parent
+    and against this checkout's K11 then K12, then turns beside K11 then
+    K12; K11 and K12 bitwise against the parent (K12 on this checkout's K11
+    output), then turns; by events and device time."""
     fk, pfk = pkg["change"]["fk"], pkg["parent"]["fk"]
     sk, psk = pkg["change"]["sk"], pkg["parent"]["sk"]
+    flat = {"change": fk, "parent": pfk}
     for name, (shape, seed, mk, off_of) in flat_cases(cs, wave_kern).items():
         torch.cuda.empty_cache()
         truth, pred = cs.device_fields(shape, seed, dev, density="mhd" in name)
@@ -351,29 +361,61 @@ def k10_lines(cs, pkg, wave_kern, dev, bad):
         tf, pf = truth.reshape(bs, nvar, nt, nx * ny), pred.reshape(bs, nvar, nt, nx * ny)
         res = {"change": mk(sk), "parent": mk(psk)}
         off = off_of(fk, ny)
-        flat = {"change": fk, "parent": pfk}
-        run = {who: (lambda who=who: flat[who]._flat_paired_absdiff_stats(tf, pf, res[who], ny,
-                                                                           off))
-               for who in flat}
-        run["two_kernel"] = lambda: fk._flat_absdiff_stats_from_res(
-            pf, fk._flat_residual_kernel(tf, res["change"], ny, off), res["change"], ny, off)
-        got = {who: run[who]() for who in run}
-        d, d2 = differs(got["change"], got["parent"]), differs(got["change"], got["two_kernel"])
-        tag = f"K10 {name}"
-        print(f"[bitwise] {tag} equal={not d} equal_two_kernel={not d2}"
-              + (f" differs={d}" if d else "") + (f" differs_two_kernel={d2}" if d2 else ""),
-              flush=True)
-        if d or d2:
-            bad.append(tag)
-        del got
-        tk, td = turns(cs, run), turns(cs, run, cs.device_ms)
-        blocks, threads = fk._k10_grid(tuple(tf.shape), res["change"], ny, off)
-        print(f"[turns] K10 {name} shape={json.dumps(list(shape))} off={off} blocks={blocks} "
-              f"threads_a_block={threads} change_ms={tk['change']} parent_ms={tk['parent']} "
-              f"two_kernel_ms={tk['two_kernel']} change_device_ms={td['change']} "
-              f"parent_device_ms={td['parent']} two_kernel_device_ms={td['two_kernel']} "
-              f"{card_state()}", flush=True)
-        del truth, pred, tf, pf
+        if "k10" in only:
+            run = {who: (lambda who=who: flat[who]._flat_paired_absdiff_stats(tf, pf, res[who],
+                                                                               ny, off))
+                   for who in flat}
+            run["two_kernel"] = lambda: fk._flat_absdiff_stats_from_res(
+                pf, fk._flat_residual_kernel(tf, res["change"], ny, off), res["change"], ny, off)
+            got = {who: run[who]() for who in run}
+            d = differs(got["change"], got["parent"])
+            d2 = differs(got["change"], got["two_kernel"])
+            tag = f"K10 {name}"
+            print(f"[bitwise] {tag} equal={not d} equal_two_kernel={not d2}"
+                  + (f" differs={d}" if d else "") + (f" differs_two_kernel={d2}" if d2 else ""),
+                  flush=True)
+            if d or d2:
+                bad.append(tag)
+            del got
+            tk, td = turns(cs, run), turns(cs, run, cs.device_ms)
+            blocks, threads = fk._k10_grid(tuple(tf.shape), res["change"], ny, off)
+            print(f"[turns] K10 {name} shape={json.dumps(list(shape))} off={off} "
+                  f"blocks={blocks} threads_a_block={threads} change_ms={tk['change']} "
+                  f"parent_ms={tk['parent']} two_kernel_ms={tk['two_kernel']} "
+                  f"change_device_ms={td['change']} parent_device_ms={td['parent']} "
+                  f"two_kernel_device_ms={td['two_kernel']} {card_state()}", flush=True)
+        r = fk._flat_residual_kernel(tf, res["change"], ny, off)
+        if "k11" in only:
+            run = {who: (lambda who=who: flat[who]._flat_residual_kernel(tf, res[who], ny, off))
+                   for who in flat}
+            same = torch.equal(r, run["parent"]())
+            print(f"[bitwise] K11 {name} equal={same}", flush=True)
+            if not same:
+                bad.append(f"K11 {name}")
+            tk, td = turns(cs, run), turns(cs, run, cs.device_ms)
+            g = fk._k11_grid(tuple(tf.shape), res["change"], ny, off)
+            print(f"[turns] K11 {name} shape={json.dumps(list(shape))} off={off} "
+                  f"route={g['route']} blocks={g['blocks']} threads_a_block={g['threads']} "
+                  f"span={g['span']} spans={g['spans']} smem={g['smem']} "
+                  f"frames_a_block={g['frames']} change_ms={tk['change']} "
+                  f"parent_ms={tk['parent']} change_device_ms={td['change']} "
+                  f"parent_device_ms={td['parent']} {card_state()}", flush=True)
+        if "k12" in only:
+            run = {who: (lambda who=who: flat[who]._flat_absdiff_stats_from_res(pf, r, res[who],
+                                                                                 ny, off))
+                   for who in flat}
+            d = differs(run["change"](), run["parent"]())
+            print(f"[bitwise] K12 {name} equal={not d}" + (f" differs={d}" if d else ""),
+                  flush=True)
+            if d:
+                bad.append(f"K12 {name}")
+            tk, td = turns(cs, run), turns(cs, run, cs.device_ms)
+            blocks, threads = fk._k12_grid(tuple(tf.shape), res["change"], ny, off)
+            print(f"[turns] K12 {name} shape={json.dumps(list(shape))} off={off} "
+                  f"blocks={blocks} threads_a_block={threads} change_ms={tk['change']} "
+                  f"parent_ms={tk['parent']} change_device_ms={td['change']} "
+                  f"parent_device_ms={td['parent']} {card_state()}", flush=True)
+        del truth, pred, tf, pf, r
 
 
 def main(argv):
@@ -495,8 +537,8 @@ def main(argv):
     if "k3" in only:
         k3_lines(cs, pkg, table, dev, bad)
         k3_route_lines(cs, pkg, dev, bad)
-    if "k10" in only:
-        k10_lines(cs, pkg, wave_kern, dev, bad)
+    if only & {"k10", "k11", "k12"}:
+        flat_lines(cs, pkg, wave_kern, dev, bad, only)
     print(f"[done] failures={json.dumps(bad)}", flush=True)
     return 1 if bad else 0
 
