@@ -23,7 +23,15 @@ version:
   modes 8, three variables, batch 5), then the trained model served and
   calibrated, with K2's JOREK continuity residual, and calibrated again
   through K1 and the explicit chunked K3.
-Training is cut to 2 epochs in all four. Then the joint-CP scores beyond
+Training is cut to 2 epochs in all four. Then the 1-D families and the
+offline pipelines, which have no kernel of their own (plain torch, as they
+are XLA in the JAX package): `experiments.advection.run` (marginal) and
+`experiments.burgers.run` (joint) at their full CONFIG (Nx 200, width 16,
+modes 8, 100 samples a split; advection Nt 100, Burgers Nt 21), then
+`run_initial("Advection")` at its `Expts_initial` configuration and
+`run_offline` on the trained wave model, its normalizers and 200 of its
+samples, saved to a temporary directory, through K4 and K5. Then the
+joint-CP scores beyond
 the flagships: the time-chunked K3 at cppre's grid-scaling shapes (NS and
 JOREK [12,3,21,512,512], MHD induction [25,6,21,256,256], wave
 [12,26,512,512]) and the flat-layout K10-K12 at the shapes where K1 is
@@ -76,6 +84,26 @@ timed. Phases, one line each:
              route's, K9's for MHD, and for JOREK K3 against K1 bit for bit
              on the calibration set), `<family>-step` (one train step at the
              family's step: launches, ms) and its `profile` line
+  advection  advection.run("marginal", Epochs=2): solver s, train s, losses,
+             mse, coverage at alpha=0.1 (aer+pre), n_rejected, the inverted
+             bounds' shape (finite, upper >= lower on average)
+  burgers    burgers.run("joint", Epochs=2): the same, and the holdout
+             coverage at alpha=0.1, which must reach 0.7
+  card-vs-cpu
+             the trained FNO1d models (1e-5 of max), PRE_Advection and
+             PRE_Burgers (1e-6) and ConvOperator1d.integrate on the card
+             against the same call on the CPU: at the default eps outside
+             the advection stencil's null modes (1e-6; the raw difference is
+             printed), and at eps 1e-2 over the whole field (1e-4)
+  advection-step, burgers-step
+             one train step at the family's batch (10): median ms of 5, host
+             clock around synchronize(), then its `profile` line
+  initial    run_initial("Advection") (T_in 20, single-shot step 30, width
+             32): solver s, train s, mse, coverage at alpha=0.1, bounds
+  initial-offline
+             run_offline on the saved wave model and 200 samples: coverage
+             sweep, the inverted bounds, and exactly K4 120 and K5 20
+             launches (6 and 1 a step of one 20-step rollout), no others
   scaling    per scaling shape (one `[kernels] kernel=K3` line each): the
              explicit `*_joint_cp_diff_stats_chunked` entry, the routed
              scores and calibrate at alpha=0.1 (the main path); K3 against
@@ -97,8 +125,9 @@ timed. Phases, one line each:
              one PyTorch call that computes K11 (conv2d over the flat field)
 
 The launch counters are set to 0 before each main path (NS serve +
-calibrate; NS train; wave; MHD; JOREK; each scaling shape; each flat family) and
-read after it: every kernel of that path must have launched in its window.
+calibrate; NS train; wave; MHD; JOREK; `run_offline`, the window
+`initial`; each scaling shape; each flat family) and read after it: every
+kernel of that path must have launched in its window.
 Then one JSON line of kernel results, the card's name and power limit, and
 as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -115,6 +144,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -191,6 +221,7 @@ PATH_KERNELS = {
     "jorek": ("K1", "K2", "K3", "K4", "K5", "K6", "K7"),
     "scaling": ("K1", "K3"),
     "flat": ("K10", "K11", "K12"),
+    "initial": ("K4", "K5"),
 }
 
 
@@ -1049,14 +1080,17 @@ def phase_parity(device):
         raise AssertionError(f"train loss fused {losses[0]} vs plain {losses[1]}")
 
 
-def phase_family(family, device):
+def phase_family(family, device, keep_dir=None):
     """`<family>.run("joint", Epochs=2)` at the full CONFIG, then the trained
     model served: CalibratedSurrogate(fused=True, score='aer+pre',
     mode='joint', the family's step and T_out) calibrated on the run's
     calibration inputs and predicting its prediction inputs, the same
     calibration through K1 (and K9 for MHD) within 1e-3 of the surrogate's
     qhat, for JOREK the explicit chunked K3 on the same inputs (bit for bit
-    K1's), and one train step. Returns the launch counts of the whole
+    K1's), and one train step. With `keep_dir`, the trained model, its
+    normalizers and the run's last 200 samples are saved there (`wave.pth`,
+    `wave_norms.npz`, `wave.npz` with `fields`, `dt` and `dx`) for
+    `phase_1d`'s `run_offline`. Returns the launch counts of the whole
     phase."""
     import torch
     from cppre_torch.cp import calibrate
@@ -1192,6 +1226,13 @@ def phase_family(family, device):
     if bad:
         raise AssertionError(f"{family}: qhat routes {qh} vs surrogate {qhat}: {bad} > 1e-3")
     model = out["model"]
+    if keep_dir is not None:
+        from cppre_torch.utils import save_checkpoint, save_norms
+
+        stem = os.path.join(keep_dir, family)
+        save_checkpoint(stem, model)
+        save_norms(stem, in_n, out_n)
+        np.savez(stem + ".npz", fields=data[-200:].cpu().numpy(), dt=dt, dx=dx)
     del out, data, captured, srv, served, pred, truth_c, pred_c, routes, cal_a, cal_u, new_a
     torch.cuda.empty_cache()
 
@@ -1202,6 +1243,243 @@ def phase_family(family, device):
     del model, step_fn
     torch.cuda.empty_cache()
     return counts
+
+
+def null_free(z):
+    """`z` [B, Nt, Nx] (numpy) less, per sample, its least-squares fit on
+    1, (-1)^t, (-1)^x and (-1)^(t+x): the modes where the advection
+    stencil's spectrum is 0, where `integrate` divides each FFT library's
+    own rounding of that spectrum by eps."""
+    z = np.asarray(z, dtype=np.float64)
+    t, x = np.meshgrid(np.arange(z.shape[1]), np.arange(z.shape[2]), indexing="ij")
+    basis = np.stack([np.ones_like(t), (-1.0) ** t, (-1.0) ** x, (-1.0) ** (t + x)], -1)
+    basis = basis.reshape(-1, 4).astype(np.float64)
+    flat = z.reshape(z.shape[0], -1).T
+    coef = np.linalg.lstsq(basis, flat, rcond=None)[0]
+    return (flat - basis @ coef).T.reshape(z.shape)
+
+
+def time_train_step_1d(what, model, batch, nx, t_in, step, t_out, loss_func, lr, device, seed):
+    """One train step of an FNO1d (plain torch: no kernel) at `batch`: the
+    median ms of 5, host clock around `synchronize()`. Returns the step
+    function and its median ms."""
+    import torch
+    from cppre_torch.train.loops import make_optimizer, make_train_step
+
+    model = model.train()
+    train_step = make_train_step(model, make_optimizer(model.parameters(), lr), step, t_out,
+                                 loss_func)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    xx = torch.rand((batch, 1, nx, t_in), generator=gen, device=device)
+    yy = torch.rand((batch, 1, nx, t_out), generator=gen, device=device)
+    train_step(xx, yy)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        train_step(xx, yy)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(times)
+    say(what, batch=batch, nx=nx, rollout_steps=t_out // step, step_ms_median=f"{step_ms:.2f}",
+        step_ms=json.dumps([round(t, 2) for t in times]))
+    return lambda: train_step(xx, yy), step_ms
+
+
+def card_vs_cpu(name, fn, args, rel_tol):
+    """`fn` on the card's `args` against `fn` on their CPU copies: max abs
+    error and its ratio to max |CPU|, raised above `rel_tol`."""
+    import torch
+
+    with torch.no_grad():
+        got = fn(*args)
+        ref = fn(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+    return compare(name, got.cpu(), ref, rel_tol)
+
+
+def phase_1d(device, keep_dir):
+    """The 1-D families and the offline pipelines: `advection.run`
+    (marginal) and `burgers.run` (joint) at their full CONFIG with Epochs
+    cut to 2, one train step of each, the card against the CPU (FNO1d,
+    PRE_Advection, PRE_Burgers, ConvOperator1d.integrate),
+    `run_initial("Advection")` at its INITIAL_CONFIGS entry, and
+    `run_offline` on the wave phase's saved model, normalizers and 200
+    samples (exactly 6 K4 and 1 K5 launches a step of one rollout).
+    Returns {"initial": launch counts of run_offline}."""
+    import torch
+    from cppre_torch.experiments import advection, burgers, initial, wave
+    from cppre_torch.experiments.pipeline import joint_cp, marginal_cp
+    from cppre_torch.models import FNO1d
+    from cppre_torch.ops import kernels as K
+    from cppre_torch.residuals import PRE_Advection, PRE_Burgers, PRE_Wave
+    from cppre_torch.solvers import Advection1D, Burgers1D
+    from cppre_torch.train.losses import lp_loss, mse
+
+    at = np.asarray([ALPHA])
+    cfg = {"Epochs": TRAIN_EPOCHS}
+    torch.cuda.empty_cache()
+
+    # ---- advection, marginal (disc 2), with the inverted bounds ----------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adv = advection.run("marginal", config=cfg, seed=SEED, verbose=False, device=device,
+                        return_residuals=True)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    c = dict(advection.CONFIG, **cfg)
+    r = [adv[k] for k in ("res_out_cal", "res_pred_cal", "res_pred_test", "res_out_test")]
+    cov = marginal_cp(*r, alphas=at)["coverage"][0]
+    lo, up = adv["inverted_bounds"]
+    losses = np.asarray(adv["train_losses"])
+    if not (np.isfinite(losses).all() and np.isfinite(lo).all() and np.isfinite(up).all()
+            and lo.shape == up.shape and (up - lo).mean() > 0):
+        raise AssertionError(f"advection: losses {losses.tolist()}, or bounds {lo.shape} not "
+                             "finite with upper >= lower on average")
+    say("advection", sims=c["n_train"] + c["n_test"] + c["n_cal"] + c["n_pred"],
+        grid=[c["Nt"], c["Nx"] - 3], residual_shape=list(r[0].shape),
+        solver_s=f"{adv['data_time']:.3f}", train_s=f"{adv['train_time']:.2f}",
+        run_s=f"{t_run:.2f}", epochs=len(losses), loss_first=f"{losses[0][0]:.6f}",
+        loss_last=f"{losses[-1][0]:.6f}", mse=f"{adv['mse']:.6e}",
+        coverage_aer_pre_alpha_0_1=f"{float(cov):.4f}", n_rejected=adv["n_rejected"],
+        bounds_shape=list(lo.shape), bounds_gap_mean=f"{float((up - lo).mean()):.6e}")
+
+    # ---- burgers, joint, with the holdout estimator -----------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bur = burgers.run("joint", config=cfg, seed=SEED, verbose=False, device=device,
+                      return_residuals=True)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    cb = dict(burgers.CONFIG, **cfg)
+    rb = [bur[k] for k in ("res_out_cal", "res_pred_cal", "res_pred", "res_out_pred")]
+    cov_b = {"aer_pre": joint_cp(*rb, alphas=at)["coverage"][0],
+             "pre": joint_cp(*rb[:3], alphas=at, mode="pre")["coverage"][0],
+             "aer_pre_holdout": joint_cp(*rb, alphas=at, holdout_modulation=True)["coverage"][0]}
+    n_rej = int(joint_cp(*rb[:3], mode="pre")["filter_mask"].sum())
+    losses_b = np.asarray(bur["train_losses"])
+    if not np.isfinite(losses_b).all():
+        raise AssertionError(f"burgers losses {losses_b.tolist()} are not finite")
+    say("burgers", sims=cb["n_train"] + cb["n_cal"] + cb["n_pred"], grid=[cb["Nt"], cb["Nx"]],
+        residual_shape=list(rb[0].shape), solver_s=f"{bur['data_time']:.3f}",
+        train_s=f"{bur['train_time']:.2f}", run_s=f"{t_run:.2f}", epochs=len(losses_b),
+        loss_first=f"{losses_b[0][0]:.6f}", loss_last=f"{losses_b[-1][0]:.6f}",
+        mse=f"{bur['mse']:.6e}", qhat=f"{float(bur['qhat']):.6e}",
+        coverage_alpha_0_1=json.dumps({k: round(float(v), 4) for k, v in cov_b.items()}),
+        n_rejected=n_rej)
+    if cov_b["aer_pre_holdout"] < 0.7:
+        raise AssertionError(f"burgers holdout coverage at alpha={ALPHA}: {cov_b}, below 0.7")
+
+    # ---- the card against the CPU: the 1-D path has no kernel -------------
+    gen = torch.Generator(device=device).manual_seed(SEED + 70)
+    checks = {}
+    for fam, out, nx, t_in in (("advection", adv, c["Nx"] - 3, c["T_in"]),
+                               ("burgers", bur, cb["Nx"], cb["T_in"])):
+        model = out["model"].eval()
+        cpu = FNO1d(model.T_in, model.step, model.modes1, model.num_vars, model.width_time,
+                    device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        x = torch.rand((100, 1, nx, t_in), generator=gen, device=device)
+        with torch.no_grad():
+            err = compare(f"{fam} FNO1d card vs CPU", model(x).cpu(), cpu(x.cpu()), 1e-5)
+        checks[f"fno1d_{fam}"] = err[1]
+    sim = Advection1D(c["Nx"], c["Nt"], c["x_min"], c["x_max"], c["t_end"], device=device)
+    u = sim.solve_batch(np.random.default_rng(SEED).uniform(advection.LB, advection.UB,
+                                                            (100, 2)), c["v"])[:, ::2]
+    pre = PRE_Advection(sim.dt, sim.dx, v=c["v"], disc=2)
+    checks["pre_advection"] = card_vs_cpu("PRE_Advection", pre, (u,), 1e-6)[1]
+    bsim = Burgers1D(cb["Nx"], cb["Nt"], cb["x_min"], cb["x_max"], cb["t_end"], cb["nu"],
+                     device=device)
+    ub = bsim.solve_batch(np.random.default_rng(SEED).uniform(burgers.LB, burgers.UB, (100, 3)))
+    checks["pre_burgers"] = card_vs_cpu("PRE_Burgers", PRE_Burgers(bsim.dt, bsim.dx, cb["nu"]),
+                                        (ub,), 1e-6)[1]
+    # integrate: the residual bounds of the run's kind (the uncropped
+    # residual + 0.01); at the default eps the stencil's null modes divide
+    # each FFT library's rounding by 1e-6, so those modes are taken out
+    # before the check (1e-6 of max); at eps 1e-2 the whole field is held,
+    # at 1e-4 of max, since 1 / (|K| + eps) scales the two FFT libraries'
+    # rounding of the field up to 100-fold
+    res = pre(u, boundary=True) + 0.01
+    with torch.no_grad():
+        got, ref = pre.D.integrate(res).cpu(), pre.D.integrate(res.cpu())
+    raw = float((got - ref).abs().max() / ref.abs().max())
+    nf = torch.from_numpy(null_free(got.numpy()) - null_free(ref.numpy())).abs().max()
+    checks["integrate_raw"] = raw
+    checks["integrate_null_free"] = float(nf / ref.abs().max())
+    if checks["integrate_null_free"] > 1e-6:
+        raise AssertionError(f"ConvOperator1d.integrate card vs CPU outside the null modes: "
+                             f"{checks['integrate_null_free']:.3e} of max, above 1e-6")
+    checks["integrate_eps_1e-2"] = card_vs_cpu(
+        "ConvOperator1d.integrate(eps=1e-2)", lambda z: pre.D.integrate(z, eps=1e-2),
+        (res,), 1e-4)[1]
+    say("card-vs-cpu", **{k: f"{v:.3e}" for k, v in checks.items()},
+        integrate_shape=list(got.shape))
+    del u, ub, res, got, ref
+
+    # ---- one train step of each family ----------------------------------
+    for fam, out, nx, cc, loss in (("advection", adv, c["Nx"] - 3, c, mse),
+                                   ("burgers", bur, cb["Nx"], cb, lp_loss)):
+        fn, ms = time_train_step_1d(f"{fam}-step", out["model"], cc["Batch Size"], nx,
+                                    cc["T_in"], cc["Step"], cc["T_out"], loss,
+                                    cc["Learning Rate"], device, SEED + 71)
+        profile_step(fn, ms, f"one {fam} train step")
+    del adv, bur
+    torch.cuda.empty_cache()
+
+    # ---- Expts_initial: advection at its historical configuration ---------
+    ci = dict(advection.CONFIG, **initial.INITIAL_CONFIGS["Advection"], **cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ini = initial.run_initial("Advection", config=cfg, seed=SEED, verbose=False, device=device,
+                              return_residuals=True)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    ri = [ini[k] for k in ("res_out_cal", "res_pred_cal", "res_pred_test", "res_out_test")]
+    lo, up = ini["inverted_bounds"]
+    if not (np.isfinite(ini["train_losses"]).all() and np.isfinite(lo).all()
+            and np.isfinite(up).all()):
+        raise AssertionError("run_initial('Advection'): losses or bounds not finite")
+    say("initial", case="Advection", t_in=ci["T_in"], t_out=ci["T_out"], step=ci["Step"],
+        width=ci["Width"], batch=ci["Batch Size"], solver_s=f"{ini['data_time']:.3f}",
+        train_s=f"{ini['train_time']:.2f}", run_s=f"{t_run:.2f}",
+        loss_last=f"{ini['train_losses'][-1][0]:.6e}", mse=f"{ini['mse']:.6e}",
+        coverage_aer_pre_alpha_0_1=f"{float(marginal_cp(*ri, alphas=at)['coverage'][0]):.4f}",
+        n_rejected=ini["n_rejected"], bounds_shape=list(lo.shape))
+    del ini, ri
+
+    # ---- run_offline: the saved wave model through K4 and K5 -------------
+    stem = os.path.join(keep_dir, "wave")
+    z = np.load(stem + ".npz")
+    dt, dx = float(z["dt"]), float(z["dx"])
+    wc = wave.CONFIG
+    ocfg = {"T_in": wc["T_in"], "T_out": wc["T_out"], "Step": wc["Step"], "Modes": wc["Modes"],
+            "Variables": wc["Variables"], "Width_time": wc["Width_time"], "n_cal": 100}
+    pre_w = PRE_Wave(dt, dx, c=wc["c"])
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    off = initial.run_offline(data=stem + ".npz", residual_fn=pre_w, cfg=ocfg,
+                              ckpt=stem + ".pth", norms=stem + "_norms.npz",
+                              invert_with=pre_w.D, verbose=False, device=device)
+    torch.cuda.synchronize()
+    t_off = time.perf_counter() - t0
+    counts = K.launch_counts()
+    n_steps = ocfg["T_out"] // ocfg["Step"]
+    want = {k: 0 for k in counts}
+    want.update(K4=6 * n_steps, K5=n_steps)
+    lo, up = off["inverted_bounds"]
+    say("initial-offline", samples=int(z["fields"].shape[0]), shape=list(z["fields"].shape),
+        run_s=f"{t_off:.3f}", mse=f"{off['mse']:.6e}",
+        coverage=json.dumps([round(float(v), 4) for v in off["coverage"]]),
+        bounds_shape=list(lo.shape), bounds_finite=bool(np.isfinite(lo).all()
+                                                        and np.isfinite(up).all()),
+        launches=json.dumps(counts, separators=(",", ":")))
+    if counts != want:
+        raise AssertionError(f"run_offline launches {counts}, expected {want}")
+    if not (np.isfinite(lo).all() and np.isfinite(up).all()):
+        raise AssertionError("run_offline: inverted bounds not finite")
+    check_path("initial", counts)
+    torch.cuda.empty_cache()
+    return {"initial": counts}
 
 
 def _wave_composite_kernel():
@@ -1662,10 +1940,12 @@ def main():
     torch.cuda.empty_cache()
     train_counts = phase_train(device)
     phase_parity(device)
-    windows = {"ns": {k: serve_counts[k] + train_counts[k] for k in serve_counts},
-               "wave": phase_family("wave", device),
-               "mhd": phase_family("mhd", device),
-               "jorek": phase_family("jorek", device)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as keep_dir:
+        windows = {"ns": {k: serve_counts[k] + train_counts[k] for k in serve_counts},
+                   "wave": phase_family("wave", device, keep_dir),
+                   "mhd": phase_family("mhd", device),
+                   "jorek": phase_family("jorek", device)}
+        windows.update(phase_1d(device, keep_dir))
     windows.update(phase_scaling(results, device))
     windows.update(phase_flat(results, device))
 

@@ -1,5 +1,7 @@
-"""CP experiments, one module per PDE family (`ns`, `wave`, `mhd`,
-`jorek`), over the shared engine (`base2d.run_2d_cp`, `pipeline`).
+"""CP experiments, one module per PDE family (`ns`, `wave`, `mhd`, `jorek`
+over the shared 2-D engine `base2d.run_2d_cp`; `advection`, `burgers`),
+the offline `Expts_initial` pipelines (`initial`), and the CP engine
+(`pipeline`).
 
 The family modules load on first access (`cppre_torch.experiments.jorek`),
 so `python -m cppre_torch.experiments.<family>` runs each as a script.
@@ -7,7 +9,7 @@ so `python -m cppre_torch.experiments.<family>` runs each as a script.
 
 import importlib
 
-__all__ = ["jorek", "mhd", "ns", "pipeline", "wave"]
+__all__ = ["advection", "burgers", "initial", "jorek", "mhd", "ns", "pipeline", "wave"]
 
 
 def __getattr__(name):
