@@ -23,15 +23,21 @@ version:
   modes 8, three variables, batch 5), then the trained model served and
   calibrated, with K2's JOREK continuity residual, and calibrated again
   through K1 and the explicit chunked K3.
-Training is cut to 2 epochs in all four. Then the 1-D families and the
+Training is cut to 2 epochs in all four. Then the 1-D families (1 epoch) and the
 offline pipelines, which have no kernel of their own (plain torch, as they
 are XLA in the JAX package): `experiments.advection.run` (marginal) and
 `experiments.burgers.run` (joint) at their full CONFIG (Nx 200, width 16,
 modes 8, 100 samples a split; advection Nt 100, Burgers Nt 21), then
 `run_initial("Advection")` at its `Expts_initial` configuration and
 `run_offline` on the trained wave model, its normalizers and 200 of its
-samples, saved to a temporary directory, through K4 and K5. Then the
-joint-CP scores beyond
+samples, saved to a temporary directory, through K4 and K5. Then
+Grad-Shafranov (no kernel): `experiments.gs.run_freegsnke()` at its full
+CONFIG (512 Solov'ev designs at 64^2, 200 epochs at batch 32) with the CAE
+and with the INR, and `run_efit()`. Then the UQ comparison harness:
+`uq.run_eval.run` at the shipped Wave config (Epochs cut from 500 to 2, all
+8 methods), its `Dist: out` rerun for Deterministic and PRE, and NS and MHD
+with `UQ: ["PRE"]`, through K4-K7, K8 (wave) and K2 (NS momentum, MHD
+energy). Then the joint-CP scores beyond
 the flagships: the time-chunked K3 at cppre's grid-scaling shapes (NS and
 JOREK [12,3,21,512,512], MHD induction [25,6,21,256,256], wave
 [12,26,512,512]) and the flat-layout K10-K12 at the shapes where K1 is
@@ -84,10 +90,10 @@ timed. Phases, one line each:
              route's, K9's for MHD, and for JOREK K3 against K1 bit for bit
              on the calibration set), `<family>-step` (one train step at the
              family's step: launches, ms) and its `profile` line
-  advection  advection.run("marginal", Epochs=2): solver s, train s, losses,
+  advection  advection.run("marginal", Epochs=1): solver s, train s, losses,
              mse, coverage at alpha=0.1 (aer+pre), n_rejected, the inverted
              bounds' shape (finite, upper >= lower on average)
-  burgers    burgers.run("joint", Epochs=2): the same, and the holdout
+  burgers    burgers.run("joint", Epochs=1): the same, and the holdout
              coverage at alpha=0.1, which must reach 0.7
   card-vs-cpu
              the trained FNO1d models (1e-5 of max), PRE_Advection and
@@ -104,6 +110,21 @@ timed. Phases, one line each:
              run_offline on the saved wave model and 200 samples: coverage
              sweep, the inverted bounds, and exactly K4 120 and K5 20
              launches (6 and 1 a step of one 20-step rollout), no others
+  gs         the GS residual on the card against the CPU (1e-6 of max); per
+             surrogate (CAE, INR) train s, run s, mse, marginal and joint
+             coverage at alpha=0.1 and the marginal diagonal (mean
+             |coverage - (1 - alpha)|, gate < 0.15), then `gs-step` (one
+             train step at batch 32: median ms of 5) and its `profile`
+             line; `gs-efit`: run_efit's diagonal (the same gate)
+  uq         one line per method and run (Wave in and out, NS, MHD): l2,
+             coverage, joint coverage, eval_time and the method's K2, K4-K8
+             launches (its training included); AER and PRE coverage >= 0.7;
+             `uq-run` lines (run s, the window's launches); `uq-dropout` and
+             its `profile` line (one MC-dropout forward); the harness's PRE
+             through K8 and K2 against the plain PRE classes on one rollout
+             of its data (1e-5 of max), with times and bounds; `uq-bayes`:
+             a Bayesian head draw through K4/K5 against the module's forward
+             (1e-4 of max); K4-K7 at the wave UQ model's shapes
   scaling    per scaling shape (one `[kernels] kernel=K3` line each): the
              explicit `*_joint_cp_diff_stats_chunked` entry, the routed
              scores and calibrate at alpha=0.1 (the main path); K3 against
@@ -126,7 +147,8 @@ timed. Phases, one line each:
 
 The launch counters are set to 0 before each main path (NS serve +
 calibrate; NS train; wave; MHD; JOREK; `run_offline`, the window
-`initial`; each scaling shape; each flat family) and read after it: every
+`initial`; the UQ runs, windows `uq` (Wave), `uq-out`, `uq-ns` and
+`uq-mhd`; each scaling shape; each flat family) and read after it: every
 kernel of that path must have launched in its window.
 Then one JSON line of kernel results, the card's name and power limit, and
 as the last line
@@ -222,7 +244,14 @@ PATH_KERNELS = {
     "scaling": ("K1", "K3"),
     "flat": ("K10", "K11", "K12"),
     "initial": ("K4", "K5"),
+    "uq": ("K4", "K5", "K6", "K7", "K8"),
+    "uq-out": ("K4", "K5", "K8"),
+    "uq-ns": ("K2", "K4", "K5", "K6", "K7"),
+    "uq-mhd": ("K2", "K4", "K5", "K6", "K7"),
+    "uq-mle": ("K4", "K5", "K6", "K7"),
 }
+# the kernels the UQ harness can launch, as its per-method lines print them
+UQ_KERNELS = ("K2", "K4", "K5", "K6", "K7", "K8")
 
 
 def say(phase, **kv):
@@ -1300,7 +1329,7 @@ def card_vs_cpu(name, fn, args, rel_tol):
 def phase_1d(device, keep_dir):
     """The 1-D families and the offline pipelines: `advection.run`
     (marginal) and `burgers.run` (joint) at their full CONFIG with Epochs
-    cut to 2, one train step of each, the card against the CPU (FNO1d,
+    cut to 1, one train step of each, the card against the CPU (FNO1d,
     PRE_Advection, PRE_Burgers, ConvOperator1d.integrate),
     `run_initial("Advection")` at its INITIAL_CONFIGS entry, and
     `run_offline` on the wave phase's saved model, normalizers and 200
@@ -1316,7 +1345,9 @@ def phase_1d(device, keep_dir):
     from cppre_torch.train.losses import lp_loss, mse
 
     at = np.asarray([ALPHA])
-    cfg = {"Epochs": TRAIN_EPOCHS}
+    # one epoch: the 1-D steps are host bound (~0.8 s each), and the run's
+    # time goes to the later phases
+    cfg = {"Epochs": 1}
     torch.cuda.empty_cache()
 
     # ---- advection, marginal (disc 2), with the inverted bounds ----------
@@ -1480,6 +1511,286 @@ def phase_1d(device, keep_dir):
     check_path("initial", counts)
     torch.cuda.empty_cache()
     return {"initial": counts}
+
+
+def host_ms(fn, reps=5):
+    """Median host milliseconds of `fn` over `reps` calls, each ending in a
+    synchronize, after a warm-up."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def gs_step(model, name, device):
+    """One train step of a trained GS surrogate at CONFIG's batch, as
+    `run_freegsnke` trains it (`gs._surrogate_step`: after an eager first
+    step, a CUDA graph replay), on random data of its shapes: the median
+    host ms of 5, then its `[profile]` line."""
+    import torch
+    from cppre_torch.experiments import gs
+
+    c = gs.CONFIG
+    gen = torch.Generator(device=device).manual_seed(SEED + 50)
+    n = c["n_train"]
+    coords = torch.rand((n, 2, c["NR"], c["NZ"]), generator=gen, device=device)
+    pf = torch.rand((n, model.n_params), generator=gen, device=device)
+    psi = torch.rand((n, 1, c["NR"], c["NZ"]), generator=gen, device=device)
+    idx, step = gs._surrogate_step(model, coords, pf, psi, c)
+    idx.copy_(torch.arange(idx.numel(), device=device))
+    step()          # eager; host_ms's warm-up call captures the graph
+    ms = host_ms(step)
+    say("gs-step", model=name, batch=idx.numel(), step_ms_median=f"{ms:.3f}")
+    profile_step(step, ms, f"one GS {name} train step")
+
+
+def phase_gs(device):
+    """Grad-Shafranov, no kernel (plain torch on the card): the GS residual
+    of 512 Solov'ev equilibria at 64^2 on the card against the CPU (1e-6 of
+    max); `run_freegsnke()` at its full CONFIG (the CAE: 512 designs, 200
+    epochs, batch 32) and with the INR, each: train seconds, MSE, marginal
+    and joint coverage at alpha = 0.1, and the gate: the mean |coverage -
+    (1 - alpha)| of the marginal diagonal below 0.15; then `run_efit()`."""
+    import torch
+    from cppre_torch.experiments import gs
+    from cppre_torch.experiments.pipeline import joint_cp, marginal_cp
+    from cppre_torch.models import ConvAutoencoder
+    from cppre_torch.residuals import PRE_GradShafranov
+    from cppre_torch.solvers import solovev_batch
+
+    R, Z, _, psi = solovev_batch(gs.CONFIG["n_total"], gs.CONFIG["NR"], gs.CONFIG["NZ"],
+                                 seed=SEED)
+    pre = PRE_GradShafranov(R, float(R[1] - R[0]), float(Z[1] - Z[0]))
+    cpu = pre(torch.from_numpy(psi))
+    card = pre(torch.from_numpy(psi).to(device))
+    _, rel = compare("GS residual card vs CPU", card.cpu(), cpu, 1e-6)
+    say("card-vs-cpu", what="PRE_GradShafranov", shape=list(card.shape), rel=f"{rel:.3e}")
+    # the process's first CAE training pays a one-time cost (cuDNN's engines
+    # and the first capture of its convolutions, seconds): one epoch of a
+    # throwaway CAE on random data of CONFIG's shapes, timed apart
+    c = gs.CONFIG
+    warm = ConvAutoencoder(grid=(c["NR"], c["NZ"]), device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 51)
+    rand = lambda *shape: torch.rand(shape, generator=gen, device=device)
+    n = c["n_train"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gs._train_surrogate(warm, rand(n, 2, c["NR"], c["NZ"]), rand(n, 12),
+                        rand(n, 1, c["NR"], c["NZ"]), dict(c, Epochs=1))
+    torch.cuda.synchronize()
+    say("gs-warm", what="one epoch of the first CAE training", s=f"{time.perf_counter() - t0:.3f}")
+    del warm
+    at = np.asarray([ALPHA])
+    for model in ("CAE", "INR"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gs.run_freegsnke(config={"Model": model}, seed=SEED, verbose=False,
+                               device=device)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        r = [out[k] for k in ("res_true_cal", "res_pred_cal", "res_pred", "res_true_pred")]
+        diag = float(np.mean(np.abs(out["coverage_marginal"] - (1 - out["alphas"]))))
+        say("gs", model=model, designs=gs.CONFIG["n_total"], grid=[gs.CONFIG["NR"],
+                                                                  gs.CONFIG["NZ"]],
+            epochs=gs.CONFIG["Epochs"], batch=gs.CONFIG["Batch Size"],
+            train_s=f"{out['train_time']:.2f}", run_s=f"{t_run:.2f}", mse=f"{out['mse']:.6e}",
+            coverage_marginal_alpha_0_1=f"{float(marginal_cp(*r, alphas=at)['coverage'][0]):.4f}",
+            coverage_joint_alpha_0_1=f"{float(joint_cp(*r, alphas=at, eps=1e-6)['coverage'][0]):.4f}",
+            marginal_diagonal=f"{diag:.4f}")
+        if not (np.isfinite(out["mse"]) and diag < 0.15):
+            raise AssertionError(f"run_freegsnke({model}): mse {out['mse']}, marginal "
+                                 f"diagonal {diag:.4f} (gate < 0.15)")
+        gs_step(out["model"], model, device)
+        del out, r
+    t0 = time.perf_counter()
+    efit = gs.run_efit(seed=SEED, verbose=False, device=device)
+    torch.cuda.synchronize()
+    diag = float(np.mean(np.abs(efit["coverage"] - (1 - efit["alphas"]))))
+    say("gs-efit", run_s=f"{time.perf_counter() - t0:.3f}", marginal_diagonal=f"{diag:.4f}",
+        coverage=json.dumps([round(float(v), 4) for v in efit["coverage"]]))
+    if diag >= 0.15:
+        raise AssertionError(f"run_efit: marginal diagonal {diag:.4f} (gate < 0.15)")
+    torch.cuda.empty_cache()
+
+
+def _uq_pre_kernel(results, family, kid, pre, fields, plain_ms_fn, n_fields_read, flops_a_cell,
+                   library_fn=None, **extra):
+    """The UQ harness's PRE on `fields` (a rollout in the convops layout):
+    its kernel (`pre`, a `uq.data_loaders.KernelPRE`) against the plain PRE
+    class on the same tensor (1e-5 of max), bit-stable on a rerun; times,
+    bound (the fields the cell reads, once, and the residual written), the
+    time of `library_fn` (one PyTorch call computing the same function;
+    its max abs error against the plain result printed beside it) where
+    there is one, and the [kernels] line."""
+    got = pre.residual(fields)
+    ref = pre.pre.residual(fields)
+    err, rel = compare(f"{kid} {family} PRE", got, ref, 1e-5)
+    same_bits(f"{kid} {family}", got, pre.residual(fields))
+    field_bytes = nbytes(fields) // fields.shape[1]
+    r = results[(kid, family)] = dict(
+        max_abs_err=err, rel_err=rel,
+        bound=bound(n_fields_read * field_bytes + nbytes(ref), flops_a_cell * ref.numel()),
+        ms=cuda_ms(lambda: pre.residual(fields)), plain_ms=cuda_ms(plain_ms_fn))
+    if library_fn is not None:
+        lib_err = float((library_fn() - ref).abs().max())
+        r["library_ms"] = cuda_ms(library_fn)
+        extra.update(library_max_abs_err=f"{lib_err:.3e}")
+    report(results, kid, family, shape=list(fields.shape), **extra)
+
+
+def phase_uq(results, device):
+    """The UQ comparison harness (`cppre_torch.uq.run_eval.run`) at the
+    shipped configs with Epochs cut from 500 to 2: Wave with all 8 methods,
+    then `Dist: "out"` for Deterministic and PRE (the trained weights from
+    the train cache), then NS and MHD with `UQ: ["PRE"]`. One line per
+    method: l2, coverage, joint coverage, eval_time and the launches of K2
+    and K4-K8 in its window (its training included). Gates: AER and PRE
+    coverage >= 0.7. Beside it, the kernels at the harness's shapes: the
+    PRE scores through K8 (wave; beside conv3d, the library call) and K2
+    (NS momentum, MHD energy) against the plain PRE classes on the same
+    rollout (1e-5 of max), a Bayesian head draw through K4/K5 against the
+    module's forward with the same draw (1e-4 of max), and K4-K7 at the
+    wave UQ model's rollout and training batch, at step 1 and at the MLE
+    head's step 2. Returns the windows "uq" (Wave), "uq-out", "uq-ns",
+    "uq-mhd" and "uq-mle" (the MLE method's share of "uq")."""
+    import torch
+    import torch.nn.functional as F
+    from cppre_torch.models import FNO2d, make_fused_apply
+    from cppre_torch.models.variants import FNO2dBayesian, make_dropout_fno
+    from cppre_torch.ops import kernels as K
+    from cppre_torch.train.rollout import autoregressive_rollout
+    from cppre_torch.uq import data_loaders, run_eval
+    from cppre_torch.uq import validation as V
+
+    cfg = run_eval.load_config(os.path.join(os.path.dirname(run_eval.__file__), "configs",
+                                            "Wave_FNO.yaml"))
+    width, modes, t_out = cfg["Width_time"], cfg["Modes"], cfg["T_out"]
+    n_eval = 30        # min(n_eval 300, the pool: n_total 60 - n_train 30)
+    windows = {}
+    # each case's in-distribution data and PRE, simulated once (as `run`
+    # would, at the shipped n_total 60 and Seed 0) and shared by its runs
+    loads = {"Wave": data_loaders.load_wave, "Navier-Stokes": data_loaders.load_ns,
+             "MHD": data_loaders.load_mhd}
+    sims = {}
+    for case, load in loads.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sims[case] = load("in", n=60, seed=0, device=device)
+        torch.cuda.synchronize()
+        say("uq-sim", case=case, shape=list(sims[case][0].shape),
+            s=f"{time.perf_counter() - t0:.2f}")
+
+    def run_case(case, window, gate, **ov):
+        counts, last = {}, {k: 0 for k in K.KERNELS}
+
+        def banked(uq, r):
+            now = K.launch_counts()
+            counts[uq] = {k: now[k] - last[k] for k in K.KERNELS}
+            last.update(now)
+
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_eval.run(case, overrides=dict({"Epochs": TRAIN_EPOCHS}, **ov), verbose=False,
+                           on_method_done=banked, device=device, case_data=sims[case])
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        windows[window] = K.launch_counts()
+        for uq, r in res.items():
+            say("uq", case=case, dist=ov.get("Dist", "in"), method=uq,
+                l2=f"{r['l2'][0]:.6e}", coverage=f"{r['coverage'][0]:.4f}",
+                joint_coverage=f"{r['joint_coverage'][0]:.4f}",
+                eval_time_s=f"{r['eval_time'][0]:.4f}",
+                launches=json.dumps({k: counts[uq][k] for k in UQ_KERNELS},
+                                    separators=(",", ":")))
+            if not np.isfinite(r["l2"][0]):
+                raise AssertionError(f"uq {case} {uq}: l2 {r['l2']} not finite")
+            if uq in gate and r["coverage"][0] < 0.7:
+                raise AssertionError(f"uq {case} {uq}: coverage {r['coverage'][0]:.4f} < 0.7")
+        say("uq-run", case=case, dist=ov.get("Dist", "in"), run_s=f"{t_run:.2f}",
+            launches=json.dumps(windows[window], separators=(",", ":")))
+        check_path(window, windows[window])
+        return counts
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_uq_") as cache:
+        # the MLE model's training and rollouts, its head at step 2
+        windows["uq-mle"] = run_case("Wave", "uq", ("AER", "PRE"), train_cache_dir=cache)["MLE"]
+        check_path("uq-mle", windows["uq-mle"])
+        run_case("Wave", "uq-out", ("AER", "PRE"), UQ=["Deterministic", "PRE"], Dist="out",
+                 train_cache_dir=cache)
+    run_case("Navier-Stokes", "uq-ns", ("PRE",), UQ=["PRE"])
+    run_case("MHD", "uq-mhd", ("PRE",), UQ=["PRE"])
+
+    # ---- the kernels at the harness's shapes, on its data and PREs ---------
+    gen = torch.Generator().manual_seed(SEED + 60)
+    for case, window, nvar, kid in (("Wave", "uq", 1, "K8"), ("Navier-Stokes", "uq-ns", 3, "K2"),
+                                    ("MHD", "uq-mhd", 6, "K2")):
+        data, pre, _ = sims.pop(case)
+        data = data[:n_eval]
+        model = FNO2d(1, 1, modes, modes, nvar, width, device=device, generator=gen).eval()
+        with torch.no_grad():
+            pred = autoregressive_rollout(make_fused_apply(model), data[..., :1].contiguous(),
+                                          1, t_out)
+        fields = pred.permute(0, 1, 4, 2, 3).contiguous()
+        if kid == "K8":
+            kern = pre.pre.D.kernel
+            w = torch.as_tensor(kern, device=device)[None, None]
+            _uq_pre_kernel(results, window, kid, pre, fields,
+                           lambda: K.fused_stencil_residual_plain(fields[:, 0], kern), 1,
+                           2 * int(np.count_nonzero(kern)) - 1,
+                           library_fn=lambda: F.conv3d(fields, w)[:, 0],
+                           library="torch.nn.functional.conv3d")
+        elif nvar == 3:
+            _uq_pre_kernel(results, window, kid, pre, fields,
+                           lambda: pre.pre.residual(fields), NS_FIELDS, NS_RES_FLOPS)
+        else:
+            _uq_pre_kernel(results, window, kid, pre, fields,
+                           lambda: pre.pre.residual(fields), MHD_FIELDS["energy"],
+                           MHD_RES_FLOPS["energy"], equation="energy")
+        del data, pre, pred, fields
+    torch.cuda.empty_cache()
+
+    # a Bayesian head draw through K4/K5 against the module's forward
+    bayes = FNO2dBayesian(1, 1, modes, modes, 1, width, device=device, generator=gen)
+    x = torch.randn((n_eval, 1, 64, 64, 1), generator=torch.Generator(device=device)
+                    .manual_seed(SEED + 61), device=device)
+    head = bayes.sample_head(torch.Generator(device=device).manual_seed(SEED + 62))
+    with torch.no_grad():
+        got = make_fused_apply(bayes, head=head)(x)
+        ref = bayes(x, head=head)
+    _, rel = compare("Bayesian draw K4/K5 vs forward", got, ref, 1e-4)
+    say("uq-bayes", shape=list(x.shape), rel=f"{rel:.3e}")
+    del bayes, x, got, ref
+    fno_kernels(results, "uq", device, width, modes, 1, 64, 64, n_eval, n_eval, SEED + 63)
+    # K5 and K7 at the MLE head's step 2 (mean and log-variance), at the
+    # rollout and training batch (Batch Size 50 over n_train 30)
+    fno_kernels(results, "uq-mle", device, width, modes, 1, 64, 64, n_eval, n_eval, SEED + 66,
+                step=2 * cfg["Step"])
+
+    # one MC-dropout forward (the module's own, dropout live) at the
+    # harness's shape, the path the fused applies must refuse: eager, and
+    # as the harness runs it, a CUDA graph (`validation._DropoutForward`)
+    drop = make_dropout_fno(1, 1, modes, modes, 1, width, device=device, generator=gen)
+    x = torch.rand((n_eval, 1, 64, 64, 1), generator=torch.Generator(device=device)
+                   .manual_seed(SEED + 64), device=device)
+    masks = torch.Generator(device=device).manual_seed(SEED + 65)
+    graphed, state = V._DropoutForward(drop, masks), masks.get_state()
+    with torch.no_grad():
+        eager_ms = host_ms(lambda: drop(x, deterministic=False, generator=masks))
+        fwd = lambda: graphed(x, state)
+        fwd()       # eager; host_ms's warm-up call captures the graph
+        ms = host_ms(fwd)
+        say("uq-dropout", shape=list(x.shape), forward_ms_median=f"{eager_ms:.3f}",
+            graphed_ms_median=f"{ms:.3f}")
+        profile_step(fwd, ms, "one MC-dropout forward (graphed)")
+    return windows
 
 
 def _wave_composite_kernel():
@@ -1946,6 +2257,8 @@ def main():
                    "mhd": phase_family("mhd", device),
                    "jorek": phase_family("jorek", device)}
         windows.update(phase_1d(device, keep_dir))
+    phase_gs(device)
+    windows.update(phase_uq(results, device))
     windows.update(phase_scaling(results, device))
     windows.update(phase_flat(results, device))
 
@@ -1970,7 +2283,10 @@ def main():
              ("K10", "flat-ns"): "ns_joint_cp_scores_flat",
              ("K10", "flat-wave"): "wave_joint_cp_scores_flat",
              ("K10", "flat-mhd"): "mhd_joint_cp_scores_flat",
-             "K11": "_flat_residual_kernel", "K12": "_flat_absdiff_stats_from_res"}
+             "K11": "_flat_residual_kernel", "K12": "_flat_absdiff_stats_from_res",
+             ("K8", "uq"): "wave_residual_fused (uq PRE)",
+             ("K2", "uq-ns"): "ns_momentum_residual_fused (uq PRE)",
+             ("K2", "uq-mhd"): "mhd_residual_fused(energy) (uq PRE)"}
     for (kid, family), r in results.items():
         # variants timed beside a path's instance, and kernels timed at a
         # path's shapes that its run does not launch (K9 at NS)

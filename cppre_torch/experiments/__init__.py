@@ -1,5 +1,6 @@
 """CP experiments, one module per PDE family (`ns`, `wave`, `mhd`, `jorek`
-over the shared 2-D engine `base2d.run_2d_cp`; `advection`, `burgers`),
+over the shared 2-D engine `base2d.run_2d_cp`; `advection`, `burgers`;
+`gs`, Grad-Shafranov),
 the offline `Expts_initial` pipelines (`initial`), and the CP engine
 (`pipeline`).
 
@@ -9,7 +10,7 @@ so `python -m cppre_torch.experiments.<family>` runs each as a script.
 
 import importlib
 
-__all__ = ["advection", "burgers", "initial", "jorek", "mhd", "ns", "pipeline", "wave"]
+__all__ = ["advection", "burgers", "gs", "initial", "jorek", "mhd", "ns", "pipeline", "wave"]
 
 
 def __getattr__(name):

@@ -42,7 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 __all__ = ["SpectralConv1d", "SpectralConv2d", "FNO1d", "FNO2d", "FNO_multi1d", "FNO_multi2d",
-           "count_params", "get_grid"]
+           "count_params", "dropout", "get_grid"]
 
 
 def _uniform_(t, bound, generator):
@@ -198,19 +198,37 @@ class SpectralConv2d(nn.Module):
         return torch.fft.irfft2(torch.complex(out_r, out_i), s=(nx, ny), dim=(-2, -1))
 
 
-class _FNOBlock2d(nn.Module):
-    """One Fourier block: gelu(mlp(spectral(x)) + w(x) + b(grid))."""
+def dropout(x, rate: float, deterministic: bool = True, generator=None):
+    """flax's `nn.Dropout`: with `deterministic` False, keep each value with
+    probability 1 - rate and scale the kept ones by 1 / (1 - rate), the
+    mask drawn from `generator` (a `torch.Generator` on x's device, which
+    a live dropout requires); else x unchanged."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("a live dropout draws its mask from an explicit torch.Generator: "
+                         "pass generator=")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
-    def __init__(self, modes1, modes2, num_vars, width, spectral_impl="dft", generator=None):
+
+class _FNOBlock2d(nn.Module):
+    """One Fourier block: gelu(mlp(spectral(x)) + w(x) + b(grid)). With
+    dropout_rate > 0, dropout follows the spectral-mlp branch."""
+
+    def __init__(self, modes1, modes2, num_vars, width, spectral_impl="dft", generator=None,
+                 dropout_rate=0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.conv = SpectralConv2d(width, width, num_vars, modes1, modes2, spectral_impl,
                                    generator)
         self.mlp = _ChannelMLP(width, width, width, generator)
         self.w = _Channel1x1(width, width, generator)
         self.b = _Channel1x1(2, width, generator)
 
-    def forward(self, x, grid):
-        x1 = self.mlp(self.conv(x))
+    def forward(self, x, grid, deterministic: bool = True, generator=None):
+        x1 = dropout(self.mlp(self.conv(x)), self.dropout_rate, deterministic, generator)
         return F.gelu(x1 + self.w(x) + self.b(grid))
 
 
@@ -219,9 +237,10 @@ def _linspace01(n, device):
     with the last point exactly 1."""
     if n == 1:
         return torch.zeros(1, dtype=torch.float32, device=device)
-    g = torch.arange(n, dtype=torch.float32, device=device) * float(np.float32(1.0 / (n - 1)))
-    g[-1] = 1.0
-    return g
+    # built on the device with no copy from the host, so a CUDA graph can
+    # capture it
+    g = torch.arange(n - 1, dtype=torch.float32, device=device) * float(np.float32(1.0 / (n - 1)))
+    return torch.cat([g, torch.ones(1, dtype=torch.float32, device=device)])
 
 
 def get_grid(shape, device=None):
@@ -233,29 +252,50 @@ def get_grid(shape, device=None):
     return torch.cat((gx, gy), dim=-1)
 
 
+HEAD_HIDDEN = 256   # the projection's hidden width
+
+
 class FNO2d(nn.Module):
     """`FNO_multi2d(T_in, step, modes1, modes2, num_vars, width_time)`: lift
     Linear(T_in+2 -> width), 6 Fourier blocks with skip-adds every 3,
     project Linear(width -> 256 -> step).
 
+    With `dropout_rate` > 0 it is `FNO_multi2d_Dropout`: dropout after the
+    lift, after each block's spectral-mlp branch and between the head's two
+    layers. As in `cppre`, the forward is deterministic unless called with
+    `deterministic=False`, and then the masks come from `generator`.
+
     [BS, Nvar, Nx, Ny, T_in] -> [BS, Nvar, Nx, Ny, step].
     """
 
     def __init__(self, T_in, step, modes1, modes2, num_vars, width_time, width_vars=0,
-                 spectral_impl="dft", *, device="cuda", generator=None):
+                 dropout_rate=0.0, spectral_impl="dft", *, device="cuda", generator=None):
         super().__init__()
         self.T_in, self.step = T_in, step
         self.modes1, self.modes2 = modes1, modes2
         self.num_vars, self.width_time, self.width_vars = num_vars, width_time, width_vars
+        self.dropout_rate = dropout_rate
         self.spectral_impl = spectral_impl
         g = generator
         self.fc0_time = _Linear(T_in + 2, width_time, g)
         for i in range(6):
             self.add_module(f"f{i}", _FNOBlock2d(modes1, modes2, num_vars, width_time,
-                                                 spectral_impl, g))
-        self.fc1_time = _Linear(width_time, 256, g)
-        self.fc2_time = _Linear(256, step, g)
+                                                 spectral_impl, g, dropout_rate))
+        self._make_head(width_time, step, g)
         self.to(device)
+
+    def _make_head(self, width_time, step, g):
+        self.fc1_time = _Linear(width_time, HEAD_HIDDEN, g)
+        self.fc2_time = _Linear(HEAD_HIDDEN, step, g)
+
+    def head_layers(self):
+        """The projection's two layers (objects with .weight and .bias), as
+        the fused applies take them."""
+        return self.fc1_time, self.fc2_time
+
+    def head_width(self) -> int:
+        """The projection's hidden width, as its first layer holds it."""
+        return self.fc1_time.weight.shape[0]
 
     def blocks(self):
         return [getattr(self, f"f{i}") for i in range(6)]
@@ -263,22 +303,28 @@ class FNO2d(nn.Module):
     def get_grid(self, shape, device=None):
         return get_grid(shape, device)
 
-    def forward(self, x):
+    def body(self, x, deterministic: bool = True, generator=None):
+        """Lift and the six blocks: [B, V, Nx, Ny, T_in] -> [B, V, Nx, Ny, W]."""
+        drop = lambda z: dropout(z, self.dropout_rate, deterministic, generator)
         grid = get_grid(x.shape, x.device).to(x.dtype)
-        x = self.fc0_time(torch.cat((x, grid), dim=-1))
+        x = drop(self.fc0_time(torch.cat((x, grid), dim=-1)))
         x = x.permute(0, 4, 1, 2, 3)                       # [B, W, V, Nx, Ny]
         # the grid is the same for every sample: the bias branch b(grid)
         # runs at batch 1 and broadcasts
         grid_c = grid[:1].permute(0, 4, 1, 2, 3)
-        f = self.blocks()
-        x0 = f[0](x, grid_c)
-        x = f[1](x0, grid_c)
-        x = f[2](x, grid_c) + x0
-        x1 = f[3](x, grid_c)
-        x = f[4](x1, grid_c)
-        x = f[5](x, grid_c) + x1
-        x = x.permute(0, 2, 3, 4, 1)                       # [B, V, Nx, Ny, W]
-        return self.fc2_time(F.gelu(self.fc1_time(x)))
+        f = [lambda z, b=b: b(z, grid_c, deterministic, generator) for b in self.blocks()]
+        x0 = f[0](x)
+        x = f[1](x0)
+        x = f[2](x) + x0
+        x1 = f[3](x)
+        x = f[4](x1)
+        x = f[5](x) + x1
+        return x.permute(0, 2, 3, 4, 1)                    # [B, V, Nx, Ny, W]
+
+    def forward(self, x, deterministic: bool = True, generator=None):
+        z = self.body(x, deterministic, generator)
+        z = dropout(F.gelu(self.fc1_time(z)), self.dropout_rate, deterministic, generator)
+        return self.fc2_time(z)
 
 
 FNO_multi2d = FNO2d

@@ -22,6 +22,13 @@ for it. Conformal calibration relies on this: calibration and prediction
 samples rolled out at different batch sizes stay exchangeable. K6 and K7
 sum weight gradients across samples and have no such property (training
 needs none).
+
+Both applies refuse a model with dropout (`FNO2d(dropout_rate > 0)`): K4
+computes the dropout-free block, as cppre's Pallas block does, so MC-dropout
+rolls out through the module's own forward. Both take a `head`, two layers
+with .weight and .bias in place of the model's projection, which is how a
+Bayesian head's drawn weights (`models.variants.FNO2dBayesian.sample_head`)
+reach K5 and, in training, get their gradients from K7.
 """
 
 from __future__ import annotations
@@ -48,14 +55,15 @@ __all__ = ["fno2d_forward_fused", "fused_supported", "make_fused_apply",
 def _limits(model: FNO2d, x_shape, backward: bool = False):
     return fno_kernel_limits(model.width_time, model.step, x_shape[2], x_shape[3],
                              model.modes1, model.modes2, backward,
-                             hidden=model.fc1_time.weight.shape[0])
+                             hidden=model.head_width())
 
 
 def fused_supported(model: FNO2d, x_shape, backward: bool = False) -> bool:
     """Whether kernels K4 and K5 (with `backward`, also K6 and K7) take this
     model at this input shape: a pure function of the configuration and the
-    shape (width, step, grid size and modes; see `fno_kernel_limits`)."""
-    return not _limits(model, x_shape, backward)
+    shape (width, step, grid size and modes; see `fno_kernel_limits`), and
+    False for a model with dropout, as in cppre."""
+    return model.dropout_rate == 0.0 and not _limits(model, x_shape, backward)
 
 
 def _require_kernels(model: FNO2d, x, backward: bool = False):
@@ -68,14 +76,34 @@ def _require_kernels(model: FNO2d, x, backward: bool = False):
                          f"{tuple(x.shape)}: " + "; ".join(broken))
 
 
-def make_fused_apply(model: FNO2d):
+def _refuse_dropout(model: FNO2d, what: str):
+    """K4's fused block computes the dropout-free block (as cppre's Pallas
+    block does), so a model with dropout is refused, with the reason."""
+    if model.dropout_rate > 0.0:
+        raise ValueError(f"{what}: the model has dropout_rate={model.dropout_rate}, and kernel K4's fused "
+                         f"Fourier block assumes dropout-free inference; roll a dropout model "
+                         f"out through its own forward")
+
+
+def _head_layers(model: FNO2d, head):
+    """The head's two layers: `head` (e.g. a Bayesian draw) or the model's
+    own (`model.head_layers()`)."""
+    return head if head is not None else model.head_layers()
+
+
+def make_fused_apply(model: FNO2d, head=None):
     """`apply_fn(x)` over the fused kernels, the `apply_fn` that
-    `train.rollout.autoregressive_rollout` takes (inference only). On a
-    CUDA tensor a shape the kernels do not take raises ValueError."""
+    `train.rollout.autoregressive_rollout` takes (inference only). `head`
+    (two layers with .weight and .bias, e.g. `FNO2dBayesian.sample_head`)
+    replaces the model's projection layers in K5. On a CUDA tensor a shape
+    the kernels do not take raises ValueError; a model with dropout is
+    refused everywhere."""
+    _refuse_dropout(model, "make_fused_apply")
+    fc1, fc2 = _head_layers(model, head)
 
     def apply_fn(x):
         _require_kernels(model, x)
-        return fno2d_forward_fused(model, x)
+        return fno2d_forward_fused(model, x, head=(fc1, fc2))
 
     return apply_fn
 
@@ -119,13 +147,15 @@ def _chain(model: FNO2d, x, block_fn, head_fn):
 
 
 @torch.no_grad()
-def fno2d_forward_fused(model: FNO2d, x):
+def fno2d_forward_fused(model: FNO2d, x, head=None):
     """[BS, Nvar, Nx, Ny, T_in] -> [BS, Nvar, Nx, Ny, step], the math of
     `model(x)`, with the blocks and the head in kernels K4 and K5 (their
-    plain versions for a CPU tensor)."""
+    plain versions for a CPU tensor); `head` as in `make_fused_apply`."""
+    _refuse_dropout(model, "fno2d_forward_fused")
     m1, m2 = model.modes1, model.modes2
+    fc1, fc2 = _head_layers(model, head)
     return _chain(model, x, lambda blk, z, x3: fno_block2d_fused(z, blk, x3, m1, m2),
-                  lambda z: projection2d_fused(z, model.fc1_time, model.fc2_time))
+                  lambda z: projection2d_fused(z, fc1, fc2))
 
 
 # ---- training: K4/K5 forward, K6/K7 backward --------------------------------
@@ -186,28 +216,31 @@ class _FusedProjection(torch.autograd.Function):
 
 
 def make_fused_train_apply(model: FNO2d, bwd_impl: str = "pallas"):
-    """A differentiable `apply_fn(x)` over the kernels, for `train.loops`:
-    every block forward (including the recompute of a checkpointed step)
-    runs K4 and the head K5. The backward is `bwd_impl`'s, with cppre's
-    meaning: 'pallas' (the default) the kernels K6 and K7, 'xla' autograd of
-    the plain block and head math (`fno_block2d_bwd_plain`,
-    `projection2d_bwd_plain`); any other value raises ValueError. On a CPU
-    tensor every kernel takes its plain version. On a CUDA tensor a shape
-    the kernels do not take raises ValueError."""
+    """A differentiable `apply_fn(x, head=None)` over the kernels, for
+    `train.loops`: every block forward (including the recompute of a
+    checkpointed step) runs K4 and the head K5. The backward is `bwd_impl`'s,
+    with cppre's meaning: 'pallas' (the default) the kernels K6 and K7,
+    'xla' autograd of the plain block and head math (`fno_block2d_bwd_plain`,
+    `projection2d_bwd_plain`); any other value raises ValueError. `head`
+    (two layers with .weight and .bias, e.g. a Bayesian draw that is a
+    function of the variational parameters) replaces the model's projection
+    layers: K7 returns the gradients of its weights and autograd carries them
+    on. On a CPU tensor every kernel takes its plain version. On a CUDA
+    tensor a shape the kernels do not take raises ValueError; a model with
+    dropout is refused everywhere."""
     if bwd_impl not in _BLOCK_BWD:
         raise ValueError(f"bwd_impl must be one of {tuple(_BLOCK_BWD)}, got {bwd_impl!r}")
+    _refuse_dropout(model, "make_fused_train_apply")
     m1, m2 = model.modes1, model.modes2
-    fc1, fc2 = model.fc1_time, model.fc2_time
 
     def block_fn(blk, z, x3):
         return _FusedBlock.apply(z, x3, blk, m1, m2, bwd_impl, *_block_params(blk))
 
-    def head_fn(z):
-        return _FusedProjection.apply(z, fc1, fc2, bwd_impl, fc1.weight, fc1.bias, fc2.weight,
-                                      fc2.bias)
-
-    def apply_fn(x):
+    def apply_fn(x, head=None):
         _require_kernels(model, x, backward=True)
-        return _chain(model, x, block_fn, head_fn)
+        fc1, fc2 = _head_layers(model, head)
+        return _chain(model, x, block_fn,
+                      lambda z: _FusedProjection.apply(z, fc1, fc2, bwd_impl, fc1.weight,
+                                                       fc1.bias, fc2.weight, fc2.bias))
 
     return apply_fn

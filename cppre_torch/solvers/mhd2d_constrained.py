@@ -22,7 +22,8 @@ axis -1 instead of on transposed planes: the same operations on the same
 values. The six primitives are stacked [n, 6, N, N] for the reconstruction,
 so each shift is one launch for all of them. Frames are written straight
 into one [n, 6, N, N, Nt] tensor, the experiment's layout, on the solver's
-device (the card unless the caller asks for the CPU).
+device (the card unless the caller asks for the CPU). On the card every
+block of `store_every` steps after the first is one CUDA graph replay.
 """
 
 from __future__ import annotations
@@ -100,6 +101,12 @@ def _cell_B(bxf, byf):
     return bx, by
 
 
+def _swap(prims):
+    """prims[:, _SWAP], gathered by slices: no index tensor comes from the
+    host, so a CUDA graph can capture it."""
+    return torch.cat([prims[:, i:i + 1] for i in _SWAP], dim=1)
+
+
 def _step(state, dx, dt):
     (rho_c, mx, my, E), bxf, byf = state
     bx, by = _cell_B(bxf, byf)
@@ -107,7 +114,7 @@ def _step(state, dx, dt):
     prims = torch.stack((rho_c, vx, vy, P, bx, by), dim=1)
 
     Fx = _sweep(prims, dx, _X)                   # (rho, mx, my, E, by) at x-faces
-    Fy = _sweep(prims[:, _SWAP], dx, _Y)         # (rho, my, mx, E, bx) at y-faces
+    Fy = _sweep(_swap(prims), dx, _Y)            # (rho, my, mx, E, bx) at y-faces
     Gy = (Fy[0], Fy[2], Fy[1], Fy[3], Fy[4])     # (rho, mx, my, E, bx-flux)
 
     div_x = lambda F: (_roll(F, -1, _X) - F) / dx
@@ -138,10 +145,38 @@ def _observe(state, dx):
     return (rho_c, vx, vy, Pt, bx, by), torch.amax(torch.abs(divB), dim=(-2, -1)) * dx
 
 
+def _flat(state):
+    (rho, mx, my, E), bxf, byf = state
+    return [rho, mx, my, E, bxf, byf]
+
+
+def _unflat(f):
+    return tuple(f[:4]), f[4], f[5]
+
+
+def _block_graph(state, n: int, dx: float, dt: float):
+    """(graph, buffers): `n` steps from the state held in `buffers` (copies
+    of `state`), written back into them, captured as one CUDA graph. A step
+    is ~200 small launches, which bound the eager loop on the host; a
+    replay runs the same kernels in the same order, so the same bits."""
+    buffers = [t.clone() for t in _flat(state)]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        s = _unflat(buffers)
+        for _ in range(n):
+            s = _step(s, dx, dt)
+        for b, v in zip(buffers, _flat(s)):
+            b.copy_(v)
+    return graph, buffers
+
+
 @torch.no_grad()
-def _mhd_run(params, N: int, n_steps: int, store_every: int, dx: float, dt: float):
+def _mhd_run(params, N: int, n_steps: int, store_every: int, dx: float, dt: float,
+             graphs: bool = True):
     """params [n, 3] (a, b, c) -> fields [n, 6, N, N, Nt] (rho, u, v, p, Bx,
-    By, the frame axis last) and err [n]."""
+    By, the frame axis last) and err [n]. On the card (with `graphs`) the
+    first `store_every` steps run eagerly and every later block of them is
+    one replay of a CUDA graph (`_block_graph`)."""
     dev = params.device
     a, b, c = (params[:, i, None, None] for i in range(3))
     x = (torch.arange(N, dtype=torch.float32, device=dev) + 0.5) * dx
@@ -170,9 +205,16 @@ def _mhd_run(params, N: int, n_steps: int, store_every: int, dx: float, dt: floa
                       device=dev)
     fields, err = _observe(state, dx)
     out[..., 0] = torch.stack(fields, dim=1)
+    graph = buffers = None
     for k in range(1, n_store + 1):
-        for _ in range(store_every):
-            state = _step(state, dx, dt)
+        if graph is not None:
+            graph.replay()
+        else:
+            for _ in range(store_every):
+                state = _step(state, dx, dt)
+            if graphs and dev.type == "cuda" and k < n_store:
+                graph, buffers = _block_graph(state, store_every, dx, dt)
+                state = _unflat(buffers)
         fields, e = _observe(state, dx)
         out[..., k] = torch.stack(fields, dim=1)
         err = torch.maximum(err, e)

@@ -1124,3 +1124,170 @@ def test_bwd_impl_xla_differentiates_the_plain_math(dev):
         assert float((h - g).abs().max()) <= 1e-3 * float(g.abs().max()), k
     with pytest.raises(ValueError, match="bwd_impl"):
         make_fused_train_apply(model, bwd_impl="cuda")
+
+
+# ---- the UQ harness's shapes and the Bayesian head ---------------------------
+
+@pytest.mark.parametrize("case", ["wave", "ns", "mhd"])
+def test_uq_pres_launch_their_kernels(dev, case):
+    """The UQ loaders' PREs (`uq.data_loaders.KernelPRE`) at the harness's
+    shapes: on the card K8 (wave) and K2 (NS momentum, MHD energy) against
+    the plain PRE class on the same fields, 1e-5 of max, one launch each;
+    `boundary=True` takes the plain class."""
+    from cppre_torch.residuals import PRE_MHD, PRE_NS, PRE_Wave
+    from cppre_torch.uq.data_loaders import KernelPRE, _wave_pre
+
+    nvar, make = {"wave": (1, lambda: _wave_pre(0.05, 2 / 63, 1.0)),
+                  "ns": (3, lambda: KernelPRE(PRE_NS(0.01, 1 / 64, 1 / 64), lambda f:
+                                              K.ns_momentum_residual_fused(f, 0.01, 1 / 64,
+                                                                           1 / 64, 1e-3))),
+                  "mhd": (6, lambda: KernelPRE(PRE_MHD(0.0025, 1 / 64, 1 / 64),
+                                               lambda f: K.mhd_residual_fused(f, "energy")))}[case]
+    pre = make()
+    fields = _randn((30, nvar, 20, 64, 64), 90, dev)
+    if case == "mhd":
+        fields[:, 0] = fields[:, 0].abs() + 0.5
+    kid = "K8" if case == "wave" else "K2"
+    before = K.launch_counts()[kid]
+    wide = torch.zeros(fields.shape[:-1] + (65,), device=dev)
+    wide[..., :64] = fields
+    got = pre.residual(wide[..., :64])                     # a strided view of the fields
+    assert K.launch_counts()[kid] == before + 1
+    _close(got, pre.pre.residual(fields), 1e-5)
+    assert isinstance(pre.pre, (PRE_Wave, PRE_NS, PRE_MHD))
+    _close(pre.residual(fields, boundary=True), pre.pre.residual(fields, boundary=True), 0)
+
+
+def test_uq_wave_model_through_k4_k5(dev):
+    """The wave UQ model (width 16, modes 8, one variable) at [30, 1, 64, 64]:
+    the fused forward against the module's, 1e-4 of max; the MLE model's
+    step-2 head too; a dropout model is refused by both fused applies."""
+    from cppre_torch.models import make_fused_apply
+    from cppre_torch.models.variants import make_dropout_fno, make_mle_fno
+
+    x = _randn((30, 1, 64, 64, 1), 91, dev)
+    for model in (FNO2d(1, 1, 8, 8, 1, 16, device=dev,
+                        generator=torch.Generator().manual_seed(92)),
+                  make_mle_fno(1, 1, 8, 8, 1, 16, device=dev,
+                               generator=torch.Generator().manual_seed(93))):
+        with torch.no_grad():
+            _close(make_fused_apply(model)(x), model(x), 1e-4)
+    drop = make_dropout_fno(1, 1, 8, 8, 1, 16, device=dev)
+    for refuse in (make_fused_apply, make_fused_train_apply):
+        with pytest.raises(ValueError, match="dropout"):
+            refuse(drop)
+
+
+def test_bayesian_head_through_k5_and_k7(dev):
+    """A Bayesian head draw in K5 forward and K7 backward against the
+    module's autograd with the same draw: the output 1e-4 of max, the
+    gradients of every parameter (weight_mu and weight_log_sigma through
+    the reparameterisation) 1e-3 of each gradient's max; K7 launches."""
+    from cppre_torch.models import make_fused_apply
+    from cppre_torch.models.variants import FNO2dBayesian
+    from cppre_torch.uq.train import _draw_eps
+
+    a = FNO2dBayesian(1, 1, 4, 4, 2, 16, device=dev, generator=torch.Generator().manual_seed(94))
+    b = FNO2dBayesian(1, 1, 4, 4, 2, 16, device=dev, generator=torch.Generator().manual_seed(94))
+    x = _randn((3, 2, 20, 18, 1), 95, dev)
+    y = _randn((3, 2, 20, 18, 1), 96, dev)
+    eps = _draw_eps(a, torch.Generator(device=dev).manual_seed(97))
+    with torch.no_grad():
+        _close(make_fused_apply(a, head=a.sample_head(eps=eps))(x),
+               b(x, head=b.sample_head(eps=eps)), 1e-4)
+    before = K.launch_counts()["K7"]
+    outs = []
+    for model, fn in ((a, make_fused_train_apply(a)), (b, b)):
+        model.zero_grad(set_to_none=True)
+        out = fn(x, head=model.sample_head(eps=eps))
+        ((out - y) ** 2).sum().backward()
+        outs.append(out.detach())
+    assert K.launch_counts()["K7"] == before + 1
+    _close(outs[0], outs[1], 1e-4)
+    for (name, p), q in zip(a.named_parameters(), b.parameters()):
+        assert p.grad is not None, name
+        _close(p.grad, q.grad, 1e-3)
+
+
+# ---- the Grad-Shafranov surrogates' CUDA-graph train step ---------------------
+
+@pytest.mark.parametrize("kind", ["cae", "inr"])
+def test_gs_graph_step_matches_eager_adam(dev, kind):
+    """`experiments.gs._surrogate_step` on the card (an eager first step,
+    then one CUDA graph replayed) against eager Adam steps of a twin model
+    on the same minibatches: each step's loss 1e-5 relative, every
+    parameter after five steps 1e-5 of its max."""
+    from cppre_torch.experiments import gs
+    from cppre_torch.models import INR, ConvAutoencoder
+
+    make = {"cae": lambda: ConvAutoencoder(grid=(16, 16), device=dev,
+                                           generator=torch.Generator().manual_seed(98)),
+            "inr": lambda: INR(width=32, depth=2, n_freqs=4, device=dev,
+                               generator=torch.Generator().manual_seed(98))}[kind]
+    cfg = {"Batch Size": 4, "Learning Rate": 1e-3}
+    coords, pf = _randn((10, 2, 16, 16), 99, dev), _randn((10, 12), 100, dev)
+    psi = _randn((10, 1, 16, 16), 101, dev)
+    graphed, eager = make(), make()
+    idx, step = gs._surrogate_step(graphed, coords, pf, psi, cfg)
+    opt = gs._adam(eager, cfg)
+    for s in range(5):
+        rows = torch.tensor([(3 * s + k) % 10 for k in range(4)], device=dev)
+        idx.copy_(rows)
+        got = float(step())
+        opt.zero_grad(set_to_none=True)
+        want = gs._mse(eager, coords[rows], pf[rows], psi[rows])
+        want.backward()
+        opt.step()
+        assert abs(got - float(want)) <= 1e-5 * abs(float(want)), s
+    for (name, p), q in zip(graphed.named_parameters(), eager.parameters()):
+        _close(p.detach(), q.detach(), 1e-5)
+
+
+def test_mc_dropout_graph_matches_eager(dev):
+    """MC dropout on the card (`uq.validation._DropoutForward`: an eager
+    first forward, then a CUDA graph with the generator registered) against
+    the module's eager forward with the generator rewound to each sample's
+    state: the same masks, so the rollouts' mean and std equal bit for bit,
+    and the generator ends in the same state."""
+    from cppre_torch.models.variants import make_dropout_fno
+    from cppre_torch.train.rollout import autoregressive_rollout
+    from cppre_torch.uq import validation as V
+
+    model = make_dropout_fno(1, 1, 8, 8, 1, 16, dropout_rate=0.2, device=dev,
+                             generator=torch.Generator().manual_seed(102))
+    a, u = _randn((6, 1, 32, 32, 1), 103, dev), _randn((6, 1, 32, 32, 5), 104, dev)
+    g_graph = torch.Generator(device=dev).manual_seed(105)
+    mean, std, mse, _ = V.validation_dropout(model, a, u, 1, 5, 3, g_graph)
+    g_eager, rollouts = torch.Generator(device=dev).manual_seed(105), []
+    with torch.no_grad():
+        for _ in range(3):
+            state = g_eager.get_state()
+
+            def eager(x, state=state):
+                g_eager.set_state(state)
+                return model(x, deterministic=False, generator=g_eager)
+
+            rollouts.append(autoregressive_rollout(eager, a, 1, 5))
+    preds = torch.stack(rollouts)
+    assert torch.equal(mean, preds.mean(dim=0))
+    assert torch.equal(std, preds.std(dim=0, correction=0))
+    assert float(std.mean()) > 0
+    assert torch.equal(g_graph.get_state(), g_eager.get_state())
+    fwd = V._DropoutForward(model, g_graph)
+    state = g_graph.get_state()
+    with torch.no_grad():
+        outs = [fwd(a, state) for _ in range(3)]
+    assert len(fwd.graphs) == 1 and torch.equal(outs[1], outs[0]) and torch.equal(outs[2], outs[0])
+
+
+def test_mhd_solver_graph_matches_eager(dev):
+    """The MHD solver on the card with its step blocks replayed as a CUDA
+    graph against the eager loop: the same kernels in the same order, so
+    the frames and the div B error equal bit for bit."""
+    from cppre_torch.solvers.mhd2d_constrained import _mhd_run
+
+    params = torch.tensor([[0.7, 0.8, 0.6], [0.9, 0.55, 0.75]], device=dev)
+    got = _mhd_run(params, 24, 12, 3, 1 / 24, 1e-3)
+    want = _mhd_run(params, 24, 12, 3, 1 / 24, 1e-3, graphs=False)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(torch.isfinite(got[0]).all())
