@@ -37,7 +37,13 @@ and with the INR, and `run_efit()`. Then the UQ comparison harness:
 `uq.run_eval.run` at the shipped Wave config (Epochs cut from 500 to 2, all
 8 methods), its `Dist: out` rerun for Deterministic and PRE, and NS and MHD
 with `UQ: ["PRE"]`, through K4-K7, K8 (wave) and K2 (NS momentum, MHD
-energy). Then the joint-CP scores beyond
+energy). Then active learning and physics-informed training at the wave
+family's full width: `experiments.pi_wave.run("pi", "finetune")` (n_train
+50, one batch; 1 pretrain and 5 PI epochs) with its loss through K8 and
+K8's backward (K8 again, on the padded cotangent with the flipped
+stencil), `experiments.al_more.run("wave", "CP")` over cppre's pool of 100
+candidates (n_train 50, n_cal 100, 1 epoch, 1 iteration), the 1-D AL/PI
+drivers at cut counts, and `EulerFVRHS`. Then the joint-CP scores beyond
 the flagships: the time-chunked K3 at cppre's grid-scaling shapes (NS and
 JOREK [12,3,21,512,512], MHD induction [25,6,21,256,256], wave
 [12,26,512,512]) and the flat-layout K10-K12 at the shapes where K1 is
@@ -125,6 +131,22 @@ timed. Phases, one line each:
              of its data (1e-5 of max), with times and bounds; `uq-bayes`:
              a Bayesian head draw through K4/K5 against the module's forward
              (1e-4 of max); K4-K7 at the wave UQ model's shapes
+  al-pi      K8's backward at the PI shape (cotangent [50, 18, 62, 62],
+             launched on [50, 20, 64, 64]) against autograd of its plain twin
+             on the wave and an asymmetric 3x3x3 stencil (1e-5 of max;
+             `[k8-adjoint]`), then `[kernels]` lines for K8 `family=pi` (the
+             padded field, conv3d beside it) and K8-bwd `family=pi` (conv3d's
+             input gradient beside it), each with its device ms; `[pi]`: MSE
+             and |PRE| before and after, the PI loss of the first and last
+             steps (the last must be lower), the window's launches (K4-K7,
+             K8 and K8-bwd all launched); `[pi-step]` (exactly K4 240, K5 40,
+             K6 120, K7 20, K8 1, K8-bwd 1 a step; median ms of 5) and its
+             `[profile]`; `[al]`: test_mse, sims_sampled, the run's and its
+             iteration's launches (K4, K5, K8 in acquisition, K6, K7 in the
+             fine-tune), then the same iteration's `[profile]`; K8
+             `family=al` at the pool's [100, 20, 64, 64]; one `[al-pi-1d]`
+             line per 1-D driver (wall s, finite values); `[cns]`
+             (`EulerFVRHS` at [8, 4, 128, 128] and its gradient, finite)
   scaling    per scaling shape (one `[kernels] kernel=K3` line each): the
              explicit `*_joint_cp_diff_stats_chunked` entry, the routed
              scores and calibrate at alpha=0.1 (the main path); K3 against
@@ -148,8 +170,10 @@ timed. Phases, one line each:
 The launch counters are set to 0 before each main path (NS serve +
 calibrate; NS train; wave; MHD; JOREK; `run_offline`, the window
 `initial`; the UQ runs, windows `uq` (Wave), `uq-out`, `uq-ns` and
-`uq-mhd`; each scaling shape; each flat family) and read after it: every
-kernel of that path must have launched in its window.
+`uq-mhd`; `pi_wave.run`, window `pi`; `al_more.run("wave")`, window `al`;
+each scaling shape; each flat family) and read after it: every kernel of
+that path must have launched in its window. K8's backward counts apart
+from its forward, as `K8-bwd`.
 Then one JSON line of kernel results, the card's name and power limit, and
 as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -160,6 +184,7 @@ TF32 is switched off throughout.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import re
@@ -228,6 +253,8 @@ KERNEL_INFO = {
     "K6": ("cppre_torch/csrc/fno_block_bwd.cu", "cppre/ops/pallas/fno_block.py:322"),
     "K7": ("cppre_torch/csrc/fno_block_bwd.cu", "cppre/ops/pallas/fno_block.py:650"),
     "K8": ("cppre_torch/csrc/stencil_kernels.cu", "cppre/ops/pallas/stencil_kernels.py:80"),
+    # K8's kernel launched as its own adjoint (the PI loss's backward)
+    "K8-bwd": ("cppre_torch/csrc/stencil_kernels.cu", "cppre/ops/pallas/stencil_kernels.py:80"),
     "K9": ("cppre_torch/csrc/stencil_kernels.cu", "cppre/ops/pallas/stencil_kernels.py:643"),
     "K3": ("cppre_torch/csrc/stencil_kernels.cu", "cppre/ops/pallas/stencil_kernels.py:844"),
     "K10": ("cppre_torch/csrc/flat_kernels.cu", "cppre/ops/pallas/flat_kernels.py:166"),
@@ -249,6 +276,8 @@ PATH_KERNELS = {
     "uq-ns": ("K2", "K4", "K5", "K6", "K7"),
     "uq-mhd": ("K2", "K4", "K5", "K6", "K7"),
     "uq-mle": ("K4", "K5", "K6", "K7"),
+    "pi": ("K4", "K5", "K6", "K7", "K8", "K8-bwd"),
+    "al": ("K4", "K5", "K6", "K7", "K8"),
 }
 # the kernels the UQ harness can launch, as its per-method lines print them
 UQ_KERNELS = ("K2", "K4", "K5", "K6", "K7", "K8")
@@ -1043,21 +1072,24 @@ def device_activity(e):
 
 
 def profile_step(fn, step_ms, what="one train step"):
-    """One call of `fn` under torch.profiler: its wall ms there, the device
-    ms summed over its kernels and memory operations (`device_activity`),
-    the annotated ranges left out of that sum, and the ten largest kernels
-    by device ms. The idle share is 1 - device ms / step_ms, the unprofiled
-    median wall time of the same call, since the profiler's own overhead
-    lengthens the wall time it sees."""
+    """One call of `fn` under torch.profiler, tracing the card's activity
+    alone (reading the host operators of a call of ~100 000 of them, an AL
+    iteration, takes the profiler ~45 s and changes no device reading): its
+    wall ms there, the device ms summed over its kernels and memory
+    operations (`device_activity`), the annotated ranges left out of that
+    sum ("not measured" where the trace holds none), and the ten largest
+    kernels by device ms. The idle share is 1 - device ms / step_ms, the
+    unprofiled median wall time of the same call, since the profiler's own
+    overhead lengthens the wall time it sees."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    by_name, ranges, unknown = {}, 0.0, False
+    by_name, ranges, n_ranges, unknown = {}, 0.0, 0, False
     for e in prof.events():
         if not str(e.device_type).endswith("CUDA"):
             continue
@@ -1065,6 +1097,7 @@ def profile_step(fn, step_ms, what="one train step"):
         unknown |= activity is None
         if not activity:
             ranges += e.time_range.elapsed_us() / 1e3
+            n_ranges += 1
             continue
         name = re.sub(r"^(void )?(\(anonymous namespace\)::)?", "", e.name)
         name = re.split(r"[<(]", name, maxsplit=1)[0] or e.name[:40]
@@ -1075,7 +1108,7 @@ def profile_step(fn, step_ms, what="one train step"):
     say("profile", what=repr(what), profiled_wall_ms=f"{wall:.2f}",
         unprofiled_ms=f"{step_ms:.2f}", device_ms=f"{device:.2f}" if device else "not measured",
         idle_share=f"{1 - device / step_ms:.3f}" if device else "not measured",
-        annotated_ranges_ms="not measured" if unknown else f"{ranges:.2f}",
+        annotated_ranges_ms=f"{ranges:.2f}" if n_ranges and not unknown else "not measured",
         top=json.dumps({k: round(v, 3) for k, v in top}))
 
 
@@ -1793,6 +1826,256 @@ def phase_uq(results, device):
     return windows
 
 
+def _k8_pi_kernels(results, kern, asym, device):
+    """K8 at the physics-informed loss's shape: the rollout's interior
+    [50, 18, 62, 62] zero-padded to [50, 20, 64, 64] (`fused_stencil_same`,
+    the pad and K8) against its plain version, and K8's backward
+    (`fused_stencil_residual_bwd`: K8 on the cotangent padded by 1 with the
+    flipped stencil) against autograd of the plain twin, on the wave stencil
+    and on a random asymmetric 3x3x3 stencil, both 1e-5 of max; then the
+    wave stencil's times, bounds (the unpadded field or cotangent in, the
+    result out) and the library's: conv3d (padding 1) for the forward,
+    conv3d's input gradient (`torch.autograd.grad`) for the backward."""
+    import torch
+    import torch.nn.functional as F
+    from cppre_torch.ops import kernels as K
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 70)
+    shape = (WAVE["batch"], T_OUT - 2, WAVE["nx"] - 2, WAVE["ny"] - 2)
+    f = torch.randn(shape, generator=gen, device=device)
+    g = torch.randn(shape, generator=gen, device=device)
+    for name, k in (("wave", kern), ("asymmetric", asym)):
+        x = f.clone().requires_grad_(True)
+        out = K.fused_stencil_same(x, k)
+        (got,) = torch.autograd.grad(out, x, g)
+        compare(f"K8 same {name}", out.detach(), K.fused_stencil_same_plain(f, k), 1e-5)
+        ref = K.fused_stencil_residual_bwd_plain(g, k, 1)
+        err, rel = compare(f"K8-bwd {name}", got, ref, 1e-5)
+        compare(f"K8-bwd wrapper {name}", K.fused_stencil_residual_bwd(g, k, 1), ref, 1e-5)
+        say("k8-adjoint", stencil=name, shape=list(shape), max_abs_err=f"{err:.3e}",
+            rel_err=f"{rel:.3e}")
+        del x, out, got
+    n_taps = int(np.count_nonzero(kern))
+    w = torch.as_tensor(kern, device=device)[None, None]
+    xl = f[:, None].clone().requires_grad_(True)
+    yl = F.conv3d(xl, w, padding=1)
+    lib_bwd = lambda: torch.autograd.grad(yl, xl, g[:, None], retain_graph=True)[0]
+    ref = K.fused_stencil_same_plain(f, kern)
+    fwd_err = compare("K8 pi", K.fused_stencil_same(f, kern), ref, 1e-5)
+    results[("K8", "pi")] = dict(
+        max_abs_err=fwd_err[0], rel_err=fwd_err[1],
+        bound=bound(nbytes(f, ref), (2 * n_taps - 1) * ref.numel()),
+        ms=cuda_ms(lambda: K.fused_stencil_same(f, kern)),
+        plain_ms=cuda_ms(lambda: K.fused_stencil_same_plain(f, kern)),
+        library_ms=cuda_ms(lambda: F.conv3d(f[:, None], w, padding=1)))
+    dev_ms = device_ms(lambda: K.fused_stencil_same(f, kern))
+    report(results, "K8", "pi", shape=list(f.shape), launched_on=[shape[0]] + [
+        n + 2 for n in shape[1:]], device_ms="not measured" if dev_ms is None else
+        f"{dev_ms:.4f} (pad and K8)", library="torch.nn.functional.conv3d (padding 1)")
+    ref = K.fused_stencil_residual_bwd_plain(g, kern, 1)
+    err, rel = compare("K8-bwd pi", K.fused_stencil_residual_bwd(g, kern, 1), ref, 1e-5)
+    lib_err = float((lib_bwd()[:, 0] - ref).abs().max())
+    results[("K8-bwd", "pi")] = dict(
+        max_abs_err=err, rel_err=rel,
+        bound=bound(nbytes(g, ref), (2 * n_taps - 1) * ref.numel()),
+        ms=cuda_ms(lambda: K.fused_stencil_residual_bwd(g, kern, 1)),
+        plain_ms=cuda_ms(lambda: K.fused_stencil_residual_bwd_plain(g, kern, 1)),
+        library_ms=cuda_ms(lib_bwd))
+    dev_ms = device_ms(lambda: K.fused_stencil_residual_bwd(g, kern, 1))
+    report(results, "K8-bwd", "pi", cotangent=list(g.shape), launched_on=[shape[0]] + [
+        n + 2 for n in shape[1:]], device_ms="not measured" if dev_ms is None else
+        f"{dev_ms:.4f} (pad and K8)", library="conv3d input gradient (torch.autograd.grad)",
+        library_max_abs_err=f"{lib_err:.3e}")
+    del f, g, xl, yl, ref
+    torch.cuda.empty_cache()
+
+
+def _pi_step(model, kern, device):
+    """One physics-informed train step of `model` at the PI batch (`kern`
+    the PI residual's stencil): `finetune_physics_informed` for one epoch
+    of one batch (rollout of T_OUT checkpointed steps through K4-K7, the PI
+    loss through K8 and K8's backward, clip, Adam), on random inputs: its
+    launches (K4 12 n, K5 2 n, K6 6 n, K7 n, K8 and K8-bwd 1 each) and
+    median ms of 5, then its `[profile]` line."""
+    import torch
+    from cppre_torch.experiments import pi_wave
+    from cppre_torch.models import make_fused_train_apply
+    from cppre_torch.ops import kernels as K
+    from cppre_torch.pi import StencilOperator, finetune_physics_informed, make_pi_loss
+    from cppre_torch.pi.losses import fno_chunk_residual
+
+    apply_fn = make_fused_train_apply(model.train())
+    loss_fn = make_pi_loss(fno_chunk_residual(StencilOperator(kern)))
+    n = WAVE["batch"]
+    xx = torch.rand((n, 1, WAVE["nx"], WAVE["ny"], 1),
+                    generator=torch.Generator(device=device).manual_seed(SEED + 71), device=device)
+    yy = torch.zeros((n, 1, WAVE["nx"], WAVE["ny"], T_OUT), device=device)   # unused by PI
+
+    def step():
+        finetune_physics_informed(apply_fn, model, xx, yy, loss_fn=loss_fn, epochs=1,
+                                  batch_size=n, step=1, T_out=T_OUT,
+                                  lr=pi_wave.PI_CONFIG["Learning Rate"])
+
+    step()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    step()
+    torch.cuda.synchronize()
+    per_step = K.launch_counts()
+    want = {"K4": 240, "K5": 40, "K6": 120, "K7": 20, "K8": 1, "K8-bwd": 1}
+    ms = host_ms(step)
+    say("pi-step", batch=n, rollout_steps=T_OUT, step_ms_median=f"{ms:.2f}",
+        launches_per_step=json.dumps({k: per_step[k] for k in want}, separators=(",", ":")))
+    if any(per_step[k] != v for k, v in want.items()):
+        raise AssertionError(f"pi-step: launches {per_step}, expected {want}")
+    profile_step(step, ms, "one PI wave train step")
+
+
+def phase_al_pi(results, device):
+    """Active learning and physics-informed training, at the wave family's
+    full width (FNO width 32, modes 16, 64^2, T_out 20, step 1): K8's
+    backward against autograd of its plain twin (`_k8_pi_kernels`);
+    `pi_wave.run("pi", "finetune")` with n_train 50 (one batch), 1 pretrain
+    epoch and 5 PI epochs: MSE and |PRE| before and after, the PI loss of
+    the first and last steps (the last must be lower), the window's
+    launches (K4-K7, K8 and K8-bwd all launched), then one PI step
+    (`_pi_step`); `al_more.run("wave", "CP")` with cppre's pool of 100
+    candidates, n_train 50, n_cal 100, 1 epoch, 1 iteration: test_mse,
+    sims_sampled, the run's launches; then the run's pretrain and
+    calibration again (`al_more.loop_inputs`) and its AL iteration
+    (`active_learning_loop`) counted (K4, K5, K8 in acquisition, K6, K7 in
+    the fine-tune), timed and profiled; the 1-D drivers once each at cut counts (plain
+    torch), and `EulerFVRHS` at [8, 4, 128, 128] with a backward. Returns
+    the windows "pi" and "al"."""
+    import torch
+    import torch.nn.functional as F
+    from cppre_torch.al import active_learning_loop
+    from cppre_torch.experiments import al_advection, al_more, pi_advection, pi_wave, wave
+    from cppre_torch.ops import kernels as K
+    from cppre_torch.residuals import PRE_Wave
+    from cppre_torch.solvers.cns_differentiable import EulerFVRHS
+
+    t_phase = time.perf_counter()
+    sim = wave._sim(wave.CONFIG, device)
+    kern = PRE_Wave(sim.dt * wave.CONFIG["t_slice"], sim.dx, 0.5).D.kernel
+    asym = np.random.default_rng(SEED + 72).standard_normal((3, 3, 3)).astype(np.float32)
+    _k8_pi_kernels(results, kern, asym, device)
+    windows = {}
+
+    # ---- PI wave: the loss through K8 forward and backward ----------------
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pi_wave.run("pi", "finetune", config={"n_train": WAVE["batch"], "n_test": 20,
+                                                "Epochs": 1, "PI_Epochs": 5},
+                      verbose=False, device=device)
+    torch.cuda.synchronize()
+    windows["pi"] = K.launch_counts()
+    pi_losses = out["pi_losses"]        # one batch an epoch: the loss of each step
+    nums = [out[k] for k in ("mse_before", "mse_after", "pre_before", "pre_after")] + pi_losses
+    say("pi", run_s=f"{time.perf_counter() - t0:.2f}", mse=f"{out['mse_before']:.6e}->"
+        f"{out['mse_after']:.6e}", pre=f"{out['pre_before']:.6e}->{out['pre_after']:.6e}",
+        pi_loss_first=f"{pi_losses[0]:.6e}", pi_loss_last=f"{pi_losses[-1]:.6e}",
+        steps=len(pi_losses), launches=json.dumps(windows["pi"], separators=(",", ":")))
+    check_path("pi", windows["pi"])
+    if not np.all(np.isfinite(nums)) or not pi_losses[-1] < pi_losses[0]:
+        raise AssertionError(f"pi: losses {pi_losses} must be finite and fall; {out}")
+    _pi_step(out["model"], kern, device)
+    del out
+    torch.cuda.empty_cache()
+
+    # ---- AL wave: CP acquisition over 100 candidates ------------------------
+    cfg = {"n_train": WAVE["batch"], "n_test": 20, "n_cal": 100, "n_pred": 100, "Epochs": 1,
+           "n_iterations": 1}
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = al_more.run("wave", "CP", config=cfg, verbose=False, device=device)
+    torch.cuda.synchronize()
+    windows["al"] = K.launch_counts()
+    run_s = time.perf_counter() - t0
+    check_path("al", windows["al"])
+    if not np.all(np.isfinite(out["test_mse"])):
+        raise AssertionError(f"al: test_mse {out['test_mse']} not finite")
+    # the AL iteration alone: the run's pretrain and calibration
+    # (`loop_inputs`), then its loop from the same weights twice, counted
+    # and timed, then under the profiler
+    kw = al_more.loop_inputs("wave", "CP", config=cfg, verbose=False, device=device)
+    start = copy.deepcopy(kw["model"].state_dict())
+
+    def iteration():
+        kw["model"].load_state_dict(start)
+        return active_learning_loop(**kw)
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    iteration()
+    torch.cuda.synchronize()
+    iteration_s, counts = time.perf_counter() - t0, K.launch_counts()
+    say("al", case="wave", acq="CP", run_s=f"{run_s:.2f}",
+        test_mse=json.dumps([round(m, 8) for m in out["test_mse"]]),
+        sims_sampled=out["sims_sampled"], iteration_s=f"{iteration_s:.2f}",
+        iteration_launches=json.dumps({k: counts[k] for k in ("K4", "K5", "K6", "K7", "K8")},
+                                      separators=(",", ":")),
+        launches=json.dumps(windows["al"], separators=(",", ":")))
+    if any(counts[k] == 0 for k in ("K4", "K5", "K6", "K7", "K8")):
+        raise AssertionError(f"al: the iteration launched {counts}")
+    profile_step(iteration, iteration_s * 1e3, "one AL wave iteration (CP, 100 candidates)")
+    del out, kw, start, iteration
+    # K8 at the acquisition's shape: the pool's 100 rollouts
+    gen = torch.Generator(device=device).manual_seed(SEED + 73)
+    pool = torch.randn((cfg["n_pred"], T_OUT, WAVE["nx"], WAVE["ny"]), generator=gen,
+                       device=device)
+    ref = K.fused_stencil_residual_plain(pool, kern)
+    err, rel = compare("K8 al", K.wave_residual_fused(pool, kern), ref, 1e-5)
+    w = torch.as_tensor(kern, device=device)[None, None]
+    results[("K8", "al")] = dict(
+        max_abs_err=err, rel_err=rel,
+        bound=bound(nbytes(pool, ref), (2 * int(np.count_nonzero(kern)) - 1) * ref.numel()),
+        ms=cuda_ms(lambda: K.wave_residual_fused(pool, kern)),
+        plain_ms=cuda_ms(lambda: K.fused_stencil_residual_plain(pool, kern)),
+        library_ms=cuda_ms(lambda: F.conv3d(pool[:, None], w)))
+    report(results, "K8", "al", shape=list(pool.shape), library="torch.nn.functional.conv3d")
+    del pool, ref
+    torch.cuda.empty_cache()
+
+    # ---- the 1-D drivers, plain torch --------------------------------------
+    cut = {"n_train": 10, "n_test": 10, "n_cal": 20, "n_pred": 20, "Epochs": 1,
+           "n_iterations": 1}
+    runs = {"al_advection": lambda: al_advection.run("PRE", config=cut, verbose=False,
+                                                     device=device)["PRE"],
+            "al_more-burgers": lambda: al_more.run("burgers", "PRE", config=cut, verbose=False,
+                                                   device=device),
+            "pi_advection": lambda: pi_advection.run("finetune", config={**cut, "PI_Epochs": 2},
+                                                     verbose=False, device=device)}
+    for name, fn in runs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        vals = (r["test_mse"] if "test_mse" in r else
+                [r[k] for k in ("mse_before", "mse_after", "pre_before", "pre_after")])
+        say("al-pi-1d", driver=name, wall_s=f"{time.perf_counter() - t0:.2f}",
+            values=json.dumps([round(float(v), 8) for v in vals]),
+            sims_sampled=r.get("sims_sampled", "-"))
+        if not np.all(np.isfinite(vals)):
+            raise AssertionError(f"{name}: {vals} not finite")
+
+    # ---- EulerFVRHS on the card, with a backward ---------------------------
+    fields = torch.rand((8, 4, 128, 128), generator=gen, device=device) + 0.5
+    fields.requires_grad_(True)
+    rhs = EulerFVRHS(1 / 128, 1 / 128)(fields)
+    (rhs ** 2).mean().backward()
+    finite = bool(torch.isfinite(rhs).all()) and bool(torch.isfinite(fields.grad).all())
+    rhs = rhs.detach()
+    say("cns", shape=list(fields.shape), rhs_max=f"{float(rhs.abs().max()):.6e}",
+        grad_max=f"{float(fields.grad.abs().max()):.6e}", finite=finite)
+    if not finite:
+        raise AssertionError("EulerFVRHS or its gradient is not finite")
+    say("al-pi", phase_s=f"{time.perf_counter() - t_phase:.2f}")
+    return windows
+
+
 def _wave_composite_kernel():
     """cppre's scaling-study wave kernel (scripts/bench_scaling.py:152-156):
     D_tt - 0.25 D_xxyy, 7 taps."""
@@ -2259,6 +2542,7 @@ def main():
         windows.update(phase_1d(device, keep_dir))
     phase_gs(device)
     windows.update(phase_uq(results, device))
+    windows.update(phase_al_pi(results, device))
     windows.update(phase_scaling(results, device))
     windows.update(phase_flat(results, device))
 
@@ -2286,7 +2570,10 @@ def main():
              "K11": "_flat_residual_kernel", "K12": "_flat_absdiff_stats_from_res",
              ("K8", "uq"): "wave_residual_fused (uq PRE)",
              ("K2", "uq-ns"): "ns_momentum_residual_fused (uq PRE)",
-             ("K2", "uq-mhd"): "mhd_residual_fused(energy) (uq PRE)"}
+             ("K2", "uq-mhd"): "mhd_residual_fused(energy) (uq PRE)",
+             ("K8", "pi"): "fused_stencil_same (PI loss)",
+             ("K8-bwd", "pi"): "fused_stencil_residual_bwd (PI loss backward)",
+             ("K8", "al"): "wave_residual_fused (AL acquisition)"}
     for (kid, family), r in results.items():
         # variants timed beside a path's instance, and kernels timed at a
         # path's shapes that its run does not launch (K9 at NS)

@@ -1,8 +1,9 @@
 """CP experiments, one module per PDE family (`ns`, `wave`, `mhd`, `jorek`
 over the shared 2-D engine `base2d.run_2d_cp`; `advection`, `burgers`;
 `gs`, Grad-Shafranov),
-the offline `Expts_initial` pipelines (`initial`), and the CP engine
-(`pipeline`).
+the offline `Expts_initial` pipelines (`initial`), active learning
+(`al_advection`, `al_more`), physics-informed training (`pi_advection`,
+`pi_wave`), and the CP engine (`pipeline`).
 
 The family modules load on first access (`cppre_torch.experiments.jorek`),
 so `python -m cppre_torch.experiments.<family>` runs each as a script.
@@ -10,7 +11,8 @@ so `python -m cppre_torch.experiments.<family>` runs each as a script.
 
 import importlib
 
-__all__ = ["advection", "burgers", "gs", "initial", "jorek", "mhd", "ns", "pipeline", "wave"]
+__all__ = ["advection", "al_advection", "al_more", "burgers", "gs", "initial", "jorek", "mhd",
+           "ns", "pi_advection", "pi_wave", "pipeline", "wave"]
 
 
 def __getattr__(name):

@@ -8,14 +8,16 @@
 | K5 | `projection2d_fused` | itself | `fno_block.projection2d_fused` |
 | K6 | `fno_block2d_bwd_fused` | itself | `fno_block.fno_block2d_bwd_fused` |
 | K7 | `projection2d_bwd_fused` | itself | `fno_block.projection2d_bwd_fused` |
-| K8 | `fused_stencil_residual` | itself, `wave_residual_fused` | `stencil_kernels.fused_stencil_residual` |
+| K8 | `fused_stencil_residual` | itself, `wave_residual_fused`, `fused_stencil_same` | `stencil_kernels.fused_stencil_residual` |
+| K8-bwd | `fused_stencil_residual_bwd` | the backward of the K8 entries (K8 on the padded cotangent with the flipped stencil) | (autograd of the same kernel in the JAX package) |
 | K9 | `_joint_cp_scores_single_pass` | `ns_joint_cp_scores_fused`, `mhd_induction_joint_cp_scores_fused` with `single_pass=True` | `stencil_kernels._joint_cp_scores_single_pass` |
 | K10 | `_flat_paired_absdiff_stats` | `ns_/mhd_/wave_joint_cp_scores_flat` | `flat_kernels._flat_paired_absdiff_stats` |
 | K11 | `_flat_residual_kernel` | the flat scores' two-kernel route (`flat_routing_decision` says 'paired' at every shape; the route stays for comparison) | `flat_kernels._flat_residual_kernel` |
 | K12 | `_flat_absdiff_stats_from_res` | the same, after K11 | `flat_kernels._flat_absdiff_stats_from_res` |
 
 (replaced functions under `cppre/ops/pallas/`; every `pallas_call` site there
-has a kernel here). Each public wrapper has a
+has a kernel here; K8-bwd is K8's kernel launched as the adjoint, counted
+apart from the forward). Each public wrapper has a
 plain twin named `*_plain`. A CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises. Every kernel counts its launches in
 `.launches` on its counter; `launch_counts()` reads them all and
@@ -53,7 +55,11 @@ from .stencil_kernels import (
     _joint_cp_diff_stats_chunked,
     _joint_cp_scores_single_pass,
     fused_stencil_residual,
+    fused_stencil_residual_bwd,
+    fused_stencil_residual_bwd_plain,
     fused_stencil_residual_plain,
+    fused_stencil_same,
+    fused_stencil_same_plain,
     jorek_joint_cp_diff_stats_chunked,
     jorek_joint_cp_diff_stats_chunked_plain,
     jorek_joint_cp_scores_fused,
@@ -96,6 +102,7 @@ KERNELS = {
     "K6": fno_block2d_bwd_fused,
     "K7": projection2d_bwd_fused,
     "K8": fused_stencil_residual,
+    "K8-bwd": fused_stencil_residual_bwd,
     "K9": _joint_cp_scores_single_pass,
     "K10": _flat_paired_absdiff_stats,
     "K11": _flat_residual_kernel,
@@ -124,7 +131,11 @@ __all__ = [
     "fno_block2d_plain",
     "fno_kernel_limits",
     "fused_stencil_residual",
+    "fused_stencil_residual_bwd",
+    "fused_stencil_residual_bwd_plain",
     "fused_stencil_residual_plain",
+    "fused_stencil_same",
+    "fused_stencil_same_plain",
     "jorek_joint_cp_diff_stats_chunked",
     "jorek_joint_cp_diff_stats_chunked_plain",
     "jorek_joint_cp_scores_fused",

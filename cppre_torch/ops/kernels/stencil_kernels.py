@@ -20,7 +20,13 @@ is the plain version of every kernel it runs in.
   version is `stencil_shift_add(field, kernel, same=False)`. A block
   marches the frames of one tile of one sample through a ring in shared
   memory (`_march_geom`). `wave_residual_fused` names it for the wave
-  experiment.
+  experiment, `fused_stencil_same` runs it on the field zero-padded by
+  k // 2 (the same-size correlation, the physics-informed loss's
+  operator). Both are differentiable in the field: on the card the
+  backward is K8 again (`fused_stencil_residual_bwd`, the valid
+  correlation of the zero-padded cotangent with the flipped stencil,
+  counted apart from the forward), on the CPU autograd of the plain
+  version.
 * K1 `_joint_cp_diff_stats`: truth and prediction read once; its instances
   return (diff [BS, *out], sum [*out], sumsq [*out]), diff = PRE(truth) - PRE(pred),
   optionally stored as bfloat16 (`diff_dtype`; the moments always come
@@ -90,6 +96,10 @@ from . import _build
 __all__ = [
     "fused_stencil_residual",
     "fused_stencil_residual_plain",
+    "fused_stencil_residual_bwd",
+    "fused_stencil_residual_bwd_plain",
+    "fused_stencil_same",
+    "fused_stencil_same_plain",
     "wave_residual_fused",
     "ns_momentum_residual_fused",
     "ns_momentum_residual_plain",
@@ -487,6 +497,24 @@ def fused_stencil_residual_plain(field, kernel, take_abs: bool = False):
     return res.abs() if take_abs else res
 
 
+def fused_stencil_same_plain(field, kernel):
+    """Plain PyTorch `fused_stencil_same`: `stencil_shift_add(same=True)`."""
+    return stencil_shift_add(field, np.asarray(kernel), same=True)
+
+
+def fused_stencil_residual_bwd_plain(cotangent, kernel, pad: int = 0):
+    """Plain PyTorch `fused_stencil_residual_bwd`: torch autograd of
+    `fused_stencil_residual_plain` over the field zero-padded by `pad`."""
+    k = np.asarray(kernel).shape[0]
+    shape = cotangent.shape[:1] + tuple(n + k - 1 - 2 * pad for n in cotangent.shape[1:])
+    with torch.enable_grad():
+        field = torch.zeros(shape, dtype=cotangent.dtype, device=cotangent.device,
+                            requires_grad=True)
+        out = fused_stencil_residual_plain(_pad3(field, pad), kernel)
+        (grad,) = torch.autograd.grad(out, field, cotangent)
+    return grad
+
+
 # ---- K8: a constant stencil marching in time ---------------------------------
 
 def _march_geom(shape, k: int):
@@ -520,25 +548,127 @@ def _launch_march(field, res: _Residual, take_abs: bool, what: str):
     return out
 
 
-def fused_stencil_residual(field, kernel, take_abs: bool = False):
-    """Kernel K8: a constant stencil on the valid interior, |D(field)| with
-    `take_abs`. field [BS, Nt, Nx, Ny]; kernel a constant [k, k, k] (odd k)
-    array. Returns [BS, Nt-k+1, Nx-k+1, Ny-k+1], the reference crop for
-    k = 3. On the card a block marches the frames of one tile of one sample
-    through a ring in shared memory; a k whose ring does not fit raises."""
-    res = _taps_cell(kernel)
+def _pad3(field, pad: int):
+    """Zero-pad the last three axes (t, x, y) of a [BS, Nt, Nx, Ny] field by
+    `pad` on each side."""
+    return torch.nn.functional.pad(field, (pad,) * 6) if pad else field
+
+
+def _check_stencil_field(field, what):
     if field.ndim != 4:
-        raise ValueError(f"fused_stencil_residual: expected [BS, Nt, Nx, Ny], "
-                         f"got {tuple(field.shape)}")
-    _check_fields(field[:, None], res, "fused_stencil_residual")
-    if not _build.on_cuda(field):
-        return fused_stencil_residual_plain(field, res.kernel, take_abs)
+        raise ValueError(f"{what}: expected [BS, Nt, Nx, Ny], got {tuple(field.shape)}")
+
+
+def _adjoint_operands(cotangent, kernel, pad: int):
+    """What K8's backward launches K8 on (`_StencilMarch`): the cotangent
+    zero-padded by k - 1 - pad, contiguous, and the stencil flipped on all
+    three axes."""
+    k = kernel.shape[0]
+    return (_pad3(cotangent, k - 1 - pad).contiguous(),
+            np.ascontiguousarray(kernel[::-1, ::-1, ::-1]))
+
+
+class _StencilMarch(torch.autograd.Function):
+    """K8 with K8 as its backward. Forward: the valid correlation of the
+    field, zero-padded by `pad` on each side of t, x and y, with the stencil
+    K. Its adjoint: out[i] = sum_a K[a] f[i + a - pad] sends the cotangent g
+    to grad[j] = sum_a K[a] g[j - a + pad] = sum_b flip(K)[b] g'[j + b],
+    g' the cotangent zero-padded by k - 1 - pad and flip(K) K reversed on
+    all three axes: the valid correlation of g' with flip(K), one more K8
+    launch of the same output shape as the field
+    (`fused_stencil_residual_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, field, res, pad):
+        ctx.kernel, ctx.pad = res.kernel, pad
+        return _march(field, res, pad)
+
+    @staticmethod
+    def backward(ctx, g):
+        return fused_stencil_residual_bwd(g, ctx.kernel, ctx.pad), None, None
+
+
+def _march(field, res, pad: int, take_abs: bool = False):
+    """K8 on the field zero-padded by `pad` (a padded copy is contiguous)."""
+    field = _pad3(field, pad).contiguous() if pad else field
     out = _launch_march(field, res, take_abs, "fused_stencil_residual")
     fused_stencil_residual.launches += 1
     return out
 
 
+def _march_differentiable(field, res, pad: int):
+    """K8, through `_StencilMarch` where autograd needs its backward, else
+    the launch alone (no autograd node on the inference path)."""
+    if torch.is_grad_enabled() and field.requires_grad:
+        return _StencilMarch.apply(field, res, pad)
+    return _march(field, res, pad)
+
+
+def _refuse_abs_under_grad(field, take_abs):
+    if take_abs and torch.is_grad_enabled() and field.requires_grad:
+        raise ValueError("fused_stencil_residual(take_abs=True) has no gradient: the kernel "
+                         "stores |D(field)| and drops the sign of D(field) that the backward "
+                         "needs; differentiate take_abs=False and take .abs() of its result")
+
+
+def fused_stencil_residual(field, kernel, take_abs: bool = False):
+    """Kernel K8: a constant stencil on the valid interior, |D(field)| with
+    `take_abs`. field [BS, Nt, Nx, Ny]; kernel a constant [k, k, k] (odd k)
+    array. Returns [BS, Nt-k+1, Nx-k+1, Ny-k+1], the reference crop for
+    k = 3. On the card a block marches the frames of one tile of one sample
+    through a ring in shared memory; a k whose ring does not fit raises.
+    Differentiable in the field: on the card its backward is K8 again
+    (`fused_stencil_residual_bwd`), on the CPU autograd of the plain
+    version; `take_abs` under grad raises."""
+    res = _taps_cell(kernel)
+    _check_stencil_field(field, "fused_stencil_residual")
+    _check_fields(field[:, None], res, "fused_stencil_residual")
+    _refuse_abs_under_grad(field, take_abs)
+    if not _build.on_cuda(field):
+        return fused_stencil_residual_plain(field, res.kernel, take_abs)
+    if take_abs:
+        return _march(field, res, 0, take_abs=True)
+    return _march_differentiable(field, res, 0)
+
+
 fused_stencil_residual.launches = 0
+
+
+def fused_stencil_same(field, kernel):
+    """Kernel K8 on the field zero-padded by k // 2 on each side of t, x and
+    y: the same-size correlation `direct_conv(field, kernel, same=True)`
+    (`PRE_Wave(...)(field, boundary=True)` for the wave kernel), field and
+    result [BS, Nt, Nx, Ny]. Differentiable in the field: on the card its
+    backward is K8 on the cotangent padded by k // 2 with the stencil
+    flipped, on the CPU autograd of the plain version. Counts on K8."""
+    res = _taps_cell(kernel)
+    _check_stencil_field(field, "fused_stencil_same")
+    if not _build.on_cuda(field):
+        return fused_stencil_same_plain(field, res.kernel)
+    return _march_differentiable(field, res, res.k // 2)
+
+
+def fused_stencil_residual_bwd(cotangent, kernel, pad: int = 0):
+    """K8's backward, itself a K8 launch: the gradient, with respect to the
+    field, of sum(cotangent * fused_stencil_residual(field zero-padded by
+    `pad`, kernel)). cotangent [BS, Mt, Mx, My] -> [BS, Mt+k-1-2 pad, ...]:
+    K8 on the cotangent zero-padded by k - 1 - pad with the stencil flipped
+    on all three axes (`_StencilMarch`). A non-contiguous cotangent is made
+    contiguous. Counts its launches apart from the forward's."""
+    kernel = np.asarray(kernel)
+    _check_stencil_field(cotangent, "fused_stencil_residual_bwd")
+    k = kernel.shape[0]
+    if not 0 <= pad <= k // 2:
+        raise ValueError(f"fused_stencil_residual_bwd: pad must lie in [0, {k // 2}], got {pad}")
+    if not _build.on_cuda(cotangent):
+        return fused_stencil_residual_bwd_plain(cotangent, kernel, pad)
+    padded, flipped = _adjoint_operands(cotangent, kernel, pad)
+    out = _launch_march(padded, _taps_cell(flipped), False, "fused_stencil_residual_bwd")
+    fused_stencil_residual_bwd.launches += 1
+    return out
+
+
+fused_stencil_residual_bwd.launches = 0
 
 
 def wave_residual_fused(field, kernel):

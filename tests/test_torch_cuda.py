@@ -1291,3 +1291,85 @@ def test_mhd_solver_graph_matches_eager(dev):
     want = _mhd_run(params, 24, 12, 3, 1 / 24, 1e-3, graphs=False)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert bool(torch.isfinite(got[0]).all())
+
+
+# ---- K8's backward and the AL / PI paths -------------------------------------
+
+def _plain_vjp(f, kern, g, pad):
+    """Autograd of K8's plain twin over the field zero-padded by `pad`."""
+    x = f.detach().clone().requires_grad_(True)
+    out = K.fused_stencil_residual_plain(sk._pad3(x, pad), kern)
+    return torch.autograd.grad(out, x, g)[0]
+
+
+@pytest.mark.parametrize("pad", [0, "same"])
+@pytest.mark.parametrize("which", ["wave", (3, 94), (5, 95)])
+def test_k8_backward_is_k8_on_the_flipped_stencil(dev, which, pad):
+    """K8's backward against autograd of its plain twin (1e-5 of max) on
+    the wave stencil and on asymmetric 3- and 5-wide stencils (a backward
+    that forgot the flip passes on the wave stencil alone): one K8 launch
+    forward, one K8-bwd launch backward, for the valid interior and for
+    the same-size route of the physics-informed loss."""
+    kern = _k8_kernel(which)
+    k = kern.shape[0]
+    p = k // 2 if pad == "same" else 0
+    f = _randn((3, 11, 21, 70), 96, dev).requires_grad_(True)
+    before = K.launch_counts()
+    out = K.fused_stencil_same(f, kern) if p else K.fused_stencil_residual(f, kern)
+    g = _randn(tuple(out.shape), 97, dev)
+    (got,) = torch.autograd.grad(out, f, g)
+    after = K.launch_counts()
+    assert (after["K8"] - before["K8"], after["K8-bwd"] - before["K8-bwd"]) == (1, 1)
+    _close(out, K.fused_stencil_residual_plain(sk._pad3(f.detach(), p), kern), 1e-5)
+    want = _plain_vjp(f, kern, g, p)
+    _close(got, want, 1e-5)
+    _close(K.fused_stencil_residual_bwd(g, kern, p), want, 1e-5)
+    _close(K.fused_stencil_residual_bwd_plain(g, kern, p), want, 1e-6)
+
+
+def test_k8_backward_takes_a_non_contiguous_cotangent(dev):
+    """The PI loss permutes the rollout ([BS, Nx, Ny, T] -> [BS, T, Nx, Ny])
+    before K8, so its cotangent can arrive strided: the backward makes it
+    contiguous and launches, never falls back."""
+    kern = _k8_kernel((3, 98))
+    g = _randn((2, 40, 30, 9), 99, dev).permute(0, 3, 1, 2)          # [2, 9, 40, 30]
+    assert not g.is_contiguous()
+    before = K.launch_counts()["K8-bwd"]
+    got = K.fused_stencil_residual_bwd(g, kern, 1)
+    assert K.launch_counts()["K8-bwd"] == before + 1
+    _close(got, K.fused_stencil_residual_bwd_plain(g.contiguous(), kern, 1), 1e-5)
+    field = _randn((2, 40, 30, 9), 100, dev).requires_grad_(True)
+    loss = (K.fused_stencil_same(field.permute(0, 3, 1, 2), kern) ** 2).mean()
+    loss.backward()
+    x = field.detach().clone().requires_grad_(True)
+    (K.fused_stencil_same_plain(x.permute(0, 3, 1, 2), kern) ** 2).mean().backward()
+    _close(field.grad, x.grad, 1e-5)
+
+
+def test_k8_take_abs_under_grad_raises(dev):
+    f = _randn((2, 6, 20, 20), 101, dev).requires_grad_(True)
+    with pytest.raises(ValueError, match="no gradient"):
+        K.fused_stencil_residual(f, _wave_kernel(), take_abs=True)
+
+
+def test_pi_wave_and_al_wave_launch_their_kernels(dev):
+    """`pi_wave.run` trains through K4-K7 with the PI loss through K8 and
+    its backward; `al_more.run("wave")` rolls out through K4/K5, scores
+    with K8 and fine-tunes through K6/K7."""
+    from cppre_torch.experiments import al_more, pi_wave
+
+    tiny = {"Nx": 32, "n_train": 4, "n_test": 4, "T_out": 4, "Width_time": 8, "Modes": 4,
+            "Epochs": 1}
+    K.reset_launch_counts()
+    out = pi_wave.run("pi", "finetune", config={**tiny, "PI_Epochs": 2}, verbose=False,
+                      device=dev)
+    counts = K.launch_counts()
+    assert all(counts[k] > 0 for k in ("K4", "K5", "K6", "K7", "K8", "K8-bwd")), counts
+    assert all(np.isfinite(out[k]) for k in ("mse_before", "mse_after", "pre_before",
+                                             "pre_after"))
+    K.reset_launch_counts()
+    out = al_more.run("wave", "PRE", config={**tiny, "n_cal": 6, "n_pred": 6,
+                                             "n_iterations": 1}, verbose=False, device=dev)
+    counts = K.launch_counts()
+    assert all(counts[k] > 0 for k in ("K4", "K5", "K6", "K7", "K8")), counts
+    assert counts["K8-bwd"] == 0 and out["sims_sampled"] == [3]

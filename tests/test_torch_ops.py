@@ -173,7 +173,7 @@ def test_kernel_wrappers_route_by_device():
     K.ns_joint_cp_diff_stats_chunked(f, f, DT, DX, DY, NU)
     K.ns_joint_cp_scores_flat(f, f, DT, DX, DY, NU)
     assert K.launch_counts() == {k: 0 for k in K.KERNELS}
-    assert set(K.KERNELS) == {f"K{i}" for i in range(1, 13)}
+    assert set(K.KERNELS) == {f"K{i}" for i in range(1, 13)} | {"K8-bwd"}
     meta = torch.empty((2, 3, 5, 8, 9), device="meta")
     with pytest.raises(ValueError):
         K.ns_momentum_residual_fused(meta, DT, DX, DY, NU)
