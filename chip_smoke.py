@@ -43,7 +43,9 @@ family's full width: `experiments.pi_wave.run("pi", "finetune")` (n_train
 K8's backward (K8 again, on the padded cotangent with the flipped
 stencil), `experiments.al_more.run("wave", "CP")` over cppre's pool of 100
 candidates (n_train 50, n_cal 100, 1 epoch, 1 iteration), the 1-D AL/PI
-drivers at cut counts, and `EulerFVRHS`. Then the joint-CP scores beyond
+drivers at cut counts, and `EulerFVRHS`. Then set propagation and the
+neural-ODE studies (no kernel: plain torch, as they are XLA in cppre) and
+the training options through K4-K7. Then the joint-CP scores beyond
 the flagships: the time-chunked K3 at cppre's grid-scaling shapes (NS and
 JOREK [12,3,21,512,512], MHD induction [25,6,21,256,256], wave
 [12,26,512,512]) and the flat-layout K10-K12 at the shapes where K1 is
@@ -147,6 +149,26 @@ timed. Phases, one line each:
              `family=al` at the pool's [100, 20, 64, 64]; one `[al-pi-1d]`
              line per 1-D driver (wall s, finite values); `[cns]`
              (`EulerFVRHS` at [8, 4, 128, 128] and its gradient, finite)
+  sets-node  `[sets]`: `set_pre_batched` at [4096, 998] (N = 1000) against
+             the same call on the CPU (2e-5 of max|bound|; each side's
+             distance to the float64 bounds printed), every padded
+             trajectory inside its bounds, ms and the radius product's
+             share, `set_PRE` on one trajectory against the batched row
+             (2e-4); `[node]`: `node.run` for sho (300 epochs), dho, bessel
+             and cauchy_euler (10, cut) at cppre's defaults: mse, coverage
+             (>= 0.7), qhat, the round trip, wall s, the rollouts' steps;
+             `[node-family]`: a trained field's family of 16 against the
+             per-sample loop (1e-6 of max|y|) and the
+             steps of one trajectory at the fit's and neural_odeint's
+             tolerances; `[train-opts]` at the NS flagship (batch 5): one
+             step at "highest", "high", "default" through K4-K7 (exactly
+             K4 240, K5 40, K6 120, K7 20) and "bf16" on the plain path
+             (none), median ms of 5; remat None / "dots" / "dots_no_batch"
+             (plain: the loss and gradients equal to None's, 1e-6 of max;
+             ms, peak GB); the precision flags back at "highest" and off
+             after every step; `run_2d_cp(fused_train=False,
+             train_precision="bf16")` at 1 epoch (finite qhat, holdout
+             coverage >= 0.7, no K6/K7)
   scaling    per scaling shape (one `[kernels] kernel=K3` line each): the
              explicit `*_joint_cp_diff_stats_chunked` entry, the routed
              scores and calibrate at alpha=0.1 (the main path); K3 against
@@ -171,7 +193,8 @@ The launch counters are set to 0 before each main path (NS serve +
 calibrate; NS train; wave; MHD; JOREK; `run_offline`, the window
 `initial`; the UQ runs, windows `uq` (Wave), `uq-out`, `uq-ns` and
 `uq-mhd`; `pi_wave.run`, window `pi`; `al_more.run("wave")`, window `al`;
-each scaling shape; each flat family) and read after it: every kernel of
+the training options, window `train-opts`; each scaling shape; each flat
+family) and read after it: every kernel of
 that path must have launched in its window. K8's backward counts apart
 from its forward, as `K8-bwd`.
 Then one JSON line of kernel results, the card's name and power limit, and
@@ -278,6 +301,7 @@ PATH_KERNELS = {
     "uq-mle": ("K4", "K5", "K6", "K7"),
     "pi": ("K4", "K5", "K6", "K7", "K8", "K8-bwd"),
     "al": ("K4", "K5", "K6", "K7", "K8"),
+    "train-opts": ("K2", "K4", "K5", "K6", "K7"),
 }
 # the kernels the UQ harness can launch, as its per-method lines print them
 UQ_KERNELS = ("K2", "K4", "K5", "K6", "K7", "K8")
@@ -2076,6 +2100,276 @@ def phase_al_pi(results, device):
     return windows
 
 
+# set propagation at a prediction set's size: B trajectories of NT_SETS
+# steps (N = NT_SETS + 2 cells after the zero padding)
+SETS_B, NT_SETS = 4096, 998
+# node.run's epochs: sho at cppre's 300, the other three cut to keep the
+# phase near two minutes (the fit integrates at rtol = atol = 1.4e-8)
+NODE_EPOCHS = {"sho": 300, "dho": 10, "bessel": 10, "cauchy_euler": 10}
+# the bf16 run_2d_cp's training samples (of ns.CONFIG's 100): 5 steps
+BF16_RUN_TRAIN = 25
+
+
+def _set_pre_f64(x):
+    """`set_pre_batched`'s bounds of x [B, Nt] in float64 numpy: the same
+    FFT convolution, cell policy and propagation, exact phases."""
+    n = x.shape[-1] + 2
+    kernel = np.concatenate(([1.0, -2.0 + 0.1010101 ** 2, 1.0], np.zeros(n - 3)))
+    k_hat = np.fft.fft(kernel)
+    conv = np.real(np.fft.ifft(np.fft.fft(np.pad(x.astype(np.float64), ((0, 0), (1, 1))))
+                               * k_hat))
+    idx = np.arange(n)
+    edge = (idx <= 3) | (idx == n - 1)
+    inv = 1.0 / (k_hat + 1e-16)
+    centres = np.real(np.fft.ifft(np.fft.fft(np.where(edge, conv, 0.0)) * inv))
+    w = np.abs(np.real(inv[None, :] * np.exp(2j * np.pi * np.outer(idx, idx) / n))).sum(1)
+    radii = np.where(edge, 0.0, np.abs(conv)) @ w[(idx[:, None] - idx[None, :]) % n].T / n
+    return centres - radii, centres + radii
+
+
+def _sets_phase(device):
+    """`set_pre_batched` at [SETS_B, NT_SETS] on the card against the same
+    call on the CPU (2e-5 of max|bound|: each float32 result lies up to
+    ~9e-6 of it from the float64 bounds, printed for 256 rows, since the
+    FFT's rounding of the padded trajectory reaches the radii through
+    |residual|), containment of every padded trajectory, its ms and the
+    radius product's share of them, and `set_PRE` on one trajectory against
+    the batched row (2e-4 of the bound scale: float64 intervals against
+    float32, cppre's own test's bound)."""
+    import torch
+    from cppre_torch.sets import set_PRE, set_pre_batched
+    from cppre_torch.sets.interval_fft import _lag_kernel
+
+    r = np.random.default_rng(SEED + 80)
+    t = np.arange(NT_SETS) * 0.1010101
+    x = (np.cos(t * r.uniform(0.8, 1.2, (SETS_B, 1))) * r.uniform(0.5, 1.5, (SETS_B, 1))
+         + 0.01 * r.standard_normal((SETS_B, NT_SETS))).astype(np.float32)
+    xd = torch.from_numpy(x).to(device)
+    lo, up = set_pre_batched(xd, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clo, cup = set_pre_batched(x, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    compare("set_pre_batched lower, card vs cpu", lo.cpu(), clo, 2e-5)
+    err, rel = compare("set_pre_batched upper, card vs cpu", up.cpu(), cup, 2e-5)
+    lo64, up64 = _set_pre_f64(x[:256])
+    scale64 = max(np.abs(lo64).max(), np.abs(up64).max())
+    f64_rel = {name: max(np.abs(a[:256].cpu().numpy() - lo64).max(),
+                         np.abs(b[:256].cpu().numpy() - up64).max()) / scale64
+               for name, a, b in (("card", lo, up), ("cpu", clo, cup))}
+    padded = torch.nn.functional.pad(xd, (1, 1))
+    contained = bool((lo <= padded).all()) and bool((up >= padded).all())
+    if not contained:
+        raise AssertionError("set_pre_batched: a padded trajectory leaves its bounds")
+    n = NT_SETS + 2
+    ms = cuda_ms(lambda: set_pre_batched(xd, device=device))
+    # the radius map alone: [B, N] x [N, N] (the lag kernel built outside)
+    kernel = np.concatenate(([1.0, -2.0 + 0.1010101 ** 2, 1.0], np.zeros(n - 3)))
+    C = torch.as_tensor(1.0 / (np.fft.fft(kernel) + 1e-16), device=device).to(torch.complex64)
+    w = _lag_kernel(C)
+    h = torch.arange(n, device=device)
+    W = w[(h[:, None] - h[None, :]) % n].T.contiguous()
+    radii = (up - lo) / 2
+    product_ms = cuda_ms(lambda: radii @ W / n)
+    one = np.array(set_PRE(x[0], device=device))
+    scale = float(cup.abs().max())
+    row_err = float(max(np.abs(one[:, 0] - clo[0].numpy()).max(),
+                        np.abs(one[:, 1] - cup[0].numpy()).max()))
+    say("sets", shape=[SETS_B, NT_SETS], cells=n, max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}",
+        card_vs_f64_rel=f"{f64_rel['card']:.3e}", cpu_vs_f64_rel=f"{f64_rel['cpu']:.3e}",
+        contained=contained, ms=f"{ms:.4f}", radius_product_ms=f"{product_ms:.4f}",
+        product_share=f"{product_ms / ms:.3f}",
+        product_bound_ms=f"{bound(nbytes(radii, W, radii), 2 * SETS_B * n * n)[0]:.4f}",
+        cpu_s=f"{cpu_s:.3f}", set_PRE_vs_row_rel=f"{row_err / scale:.3e}")
+    if row_err > 2e-4 * scale:
+        raise AssertionError(f"set_PRE vs set_pre_batched's row: {row_err:.3e} > 2e-4 of "
+                             f"{scale:.3e}")
+
+
+def _node_phase(device):
+    """`node.run` for each problem at cppre's defaults (n_train 4, n_cal 32,
+    n_pred 16, Nt 100, width 50), epochs `NODE_EPOCHS`: mse, coverage at
+    alpha 0.1 (>= 0.7), qhat, the round trip, the run's and its fit's wall s
+    and the rollouts' accepted and
+    rejected steps; then with the trained sho and bessel fields, a family
+    of 16 against the per-sample loop on the card (1e-6 of max|y|) and the steps
+    of one trajectory at the fit's tolerance (1.4e-8) and at
+    neural_odeint's (1e-6 / 1e-7)."""
+    import torch
+    from cppre_torch.node import experiments as node_exp
+    from cppre_torch.node import neural_odeint
+
+    trained = {}
+    for problem in node_exp.PROBLEMS:
+        epochs = NODE_EPOCHS[problem]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = node_exp.run(problem, epochs=epochs, seed=SEED, verbose=False, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        q = out["qhat"]
+        say("node", problem=problem, epochs=f"{epochs} of 300", wall_s=f"{wall:.2f}",
+            fit_s=f"{out['fit_s']:.2f}",
+            mse=f"{out['mse']:.6e}", coverage=f"{out['coverage']:.4f}",
+            qhat_mean=f"{float(np.mean(q)):.6e}", qhat_max=f"{float(np.max(q)):.6e}",
+            roundtrip_err=f"{out['roundtrip_err']:.6e}",
+            fit_loss=f"{out['fit_losses'][0]:.6e}->{out['fit_losses'][-1]:.6e}",
+            rollout_steps=json.dumps(out["steps"], separators=(",", ":")))
+        vals = [out["mse"], out["roundtrip_err"], *out["fit_losses"]] + list(np.ravel(q))
+        if not np.all(np.isfinite(vals)) or out["coverage"] < 0.7:
+            raise AssertionError(f"node {problem}: not finite, or coverage "
+                                 f"{out['coverage']} < 0.7")
+        trained[problem] = out["model"]
+    for problem in ("sho", "bessel"):
+        model = trained[problem]
+        t = node_exp._domain(problem, 100, None)
+        fam = node_exp._trajectories(problem, 16, t, SEED + 1)
+        with torch.no_grad():
+            ys = neural_odeint(model, fam[:, 0], t)
+            loop = torch.stack([neural_odeint(model, y, t) for y in fam[:, 0]])
+            _, fit_steps = neural_odeint(model, fam[0, 0], t, rtol=1.4e-8, atol=1.4e-8,
+                                         return_stats=True)
+            _, run_steps = neural_odeint(model, fam[0, 0], t, return_stats=True)
+        err, rel = compare(f"node {problem} family vs per-sample loop", ys, loop, 1e-6)
+        steps = lambda s: f"{int(s['accepted'][0])}+{int(s['rejected'][0])}"
+        say("node-family", problem=problem, family=list(fam.shape[:2]),
+            max_abs_err=f"{err:.3e}", rel_err=f"{rel:.3e}",
+            steps_at_fit_tol=steps(fit_steps), steps_at_odeint_tol=steps(run_steps))
+
+
+def _train_opts_phase(device):
+    """The training options at the NS flagship's width (FNO2d modes 8, 3
+    variables, width 16, 100^2, T_out 20, batch 5): one train step through
+    K4-K7 at "highest", "high", "default" and "highest" again (launches K4
+    240, K5 40, K6 120, K7 20 a step; median ms of 5), "bf16" on the plain
+    path (no K4-K7; median of 3: a plain step takes ~2 s), `remat_policy`
+    None / "dots" / "dots_no_batch" on the plain path (the loss and
+    gradients equal to None's within 1e-6 of max; the ms and peak memory of
+    that one call, the model's first at its policy), the precision flags back at "highest" and False after every
+    step; then `run_2d_cp(fused_train=False, train_precision="bf16")` at 1
+    epoch on smooth fields, n_train cut to `BF16_RUN_TRAIN` (finite qhat,
+    holdout coverage, no K6/K7). Returns the window's launch counts."""
+    import torch
+    from cppre_torch.experiments import ns
+    from cppre_torch.experiments.base2d import run_2d_cp
+    from cppre_torch.models import make_fused_train_apply, with_train_precision
+    from cppre_torch.ops import kernels as K
+    from cppre_torch.train.loops import make_optimizer, make_train_step, rollout_loss
+    from cppre_torch.train.losses import lp_loss
+
+    def flags_restored(what):
+        got = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32,
+               torch.backends.cuda.matmul.allow_tf32)
+        if got != ("highest", False, False):
+            raise AssertionError(f"{what}: precision flags {got} after the step")
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 90)
+    xx = torch.rand((TRAIN_BATCH, NVAR, NX, NY, T_IN), generator=gen, device=device)
+    yy = torch.rand((TRAIN_BATCH, NVAR, NX, NY, T_OUT), generator=gen, device=device)
+    n = T_OUT // STEP
+    K.reset_launch_counts()
+    window = K.launch_counts()
+    # "highest" twice, first and last, for the spread between turns
+    for turn, precision in enumerate(("highest", "high", "default", "bf16", "highest")):
+        model = build_model(device).train()
+        apply = model if precision == "bf16" else make_fused_train_apply(model)
+        step = make_train_step(with_train_precision(apply, precision),
+                               make_optimizer(model.parameters(), 5e-3), STEP, T_OUT, lp_loss)
+        step(xx, yy)
+        torch.cuda.synchronize()
+        flags_restored(precision)
+        before = K.launch_counts()
+        loss, _ = step(xx, yy)
+        torch.cuda.synchronize()
+        per_step = {k: K.launch_counts()[k] - before[k] for k in ("K4", "K5", "K6", "K7")}
+        flags_restored(precision)
+        ms = host_ms(lambda: step(xx, yy), reps=3 if precision == "bf16" else 5)
+        flags_restored(precision)
+        want = ({k: 0 for k in per_step} if precision == "bf16"
+                else {"K4": 12 * n, "K5": 2 * n, "K6": 6 * n, "K7": n})
+        say("train-opts", precision=precision, turn=turn,
+            route="plain" if precision == "bf16" else "K4-K7",
+            step_ms_median=f"{ms:.2f}", of=3 if precision == "bf16" else 5,
+            loss=f"{float(loss):.6e}",
+            launches_per_step=json.dumps(per_step, separators=(",", ":")))
+        if per_step != want or not np.isfinite(float(loss)):
+            raise AssertionError(f"train-opts {precision}: launches {per_step}, expected {want},"
+                                 f" loss {float(loss)}")
+        del model, step
+    ref = None
+    for policy in (None, "dots", "dots_no_batch"):
+        model = build_model(device).train()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        t0 = time.perf_counter()
+        loss, _ = rollout_loss(model, xx, yy, STEP, T_OUT, lp_loss, remat_policy=policy)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        loss, grads = loss.detach(), [p.grad for p in model.parameters()]
+        peak_gb = (torch.cuda.max_memory_allocated(device) - base) / 1e9
+        flags_restored(f"remat {policy}")
+        if ref is None:
+            ref = (loss, grads)
+            err = 0.0
+        else:
+            err, _ = compare(f"remat {policy} loss", loss, ref[0], 1e-6)
+            for g, r in zip(grads, ref[1]):
+                if g.is_complex():
+                    g, r = torch.view_as_real(g), torch.view_as_real(r)
+                err = max(err, compare(f"remat {policy} gradient", g, r, 1e-6)[0])
+        say("train-opts", remat_policy=policy, route="plain", loss_and_grads_ms=f"{ms:.2f}",
+            peak_gb=f"{peak_gb:.3f}", max_abs_err_vs_none=f"{err:.3e}")
+        del model, grads
+    ref = None
+    torch.cuda.empty_cache()
+    # run_2d_cp trains in bf16 on the plain path; the CP phase stays float32
+    data_np, _ = smooth_fields(N_ALL, T_IN + T_OUT, NX, NY, SEED + 91, layout="fno")
+    cfg = dict(ns.CONFIG, Epochs=1, n_train=BF16_RUN_TRAIN)
+    data_np = data_np[ns.CONFIG["n_train"] - BF16_RUN_TRAIN:]
+    before = K.launch_counts()
+    t0 = time.perf_counter()
+    out = run_2d_cp(data=data_np, cfg=cfg, verbose=False, fused_train=False,
+                    train_precision="bf16", device=device, return_residuals=True,
+                    residual_fn=lambda f: K.ns_momentum_residual_fused(f, DT, DX, DY, NU))
+    torch.cuda.synchronize()
+    counts = {k: K.launch_counts()[k] - before[k] for k in ("K2", "K4", "K5", "K6", "K7")}
+    flags_restored("run_2d_cp bf16")
+    cov = coverage_at_alpha(out)
+    qhat = float(out["qhat"])
+    say("train-opts", run="run_2d_cp(fused_train=False, train_precision='bf16')", epochs=1,
+        n_train=f"{BF16_RUN_TRAIN} of 100", n_cal=cfg["n_cal"], n_pred=cfg["n_pred"],
+        run_s=f"{time.perf_counter() - t0:.2f}", train_s=f"{out['train_time']:.2f}",
+        loss=f"{out['train_losses'][0][0]:.6f}", qhat=f"{qhat:.6e}", coverage_alpha_0_1=cov,
+        launches=json.dumps(counts, separators=(",", ":")))
+    if not np.isfinite(qhat) or counts["K6"] or counts["K7"] or not counts["K4"]:
+        raise AssertionError(f"run_2d_cp bf16: qhat {qhat}, launches {counts}")
+    del out, data_np
+    torch.cuda.empty_cache()
+    return {k: v - window[k] for k, v in K.launch_counts().items()}
+
+
+def phase_sets_node(device):
+    """Set propagation, the neural-ODE studies (plain torch on the card, as
+    they are XLA in cppre: no kernel) and the training options (K4-K7 under
+    each precision). Imports scipy first: `node`'s Bessel problem needs
+    `scipy.special`, `sets.Zonotope` `scipy.optimize`. Returns the window
+    "train-opts"."""
+    import scipy.optimize  # noqa: F401
+    import scipy.special  # noqa: F401
+    import torch
+
+    t_phase = time.perf_counter()
+    _sets_phase(device)
+    torch.cuda.empty_cache()
+    _node_phase(device)
+    windows = {"train-opts": _train_opts_phase(device)}
+    check_path("train-opts", windows["train-opts"])
+    say("sets-node", phase_s=f"{time.perf_counter() - t_phase:.2f}")
+    return windows
+
+
 def _wave_composite_kernel():
     """cppre's scaling-study wave kernel (scripts/bench_scaling.py:152-156):
     D_tt - 0.25 D_xxyy, 7 taps."""
@@ -2543,6 +2837,7 @@ def main():
     phase_gs(device)
     windows.update(phase_uq(results, device))
     windows.update(phase_al_pi(results, device))
+    windows.update(phase_sets_node(device))
     windows.update(phase_scaling(results, device))
     windows.update(phase_flat(results, device))
 

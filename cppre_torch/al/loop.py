@@ -10,7 +10,12 @@ evaluate the test MSE.
 returns `model.state_dict()`. A 2-D FNO rolls out through kernels K4/K5
 (`models.make_fused_apply`) and fine-tunes through K4-K7
 (`models.make_fused_train_apply`), the port's default route; an FNO1d
-through its module.
+through its module. `train_precision` wraps the fine-tunes only
+(`models.with_train_precision`); the acquisition rollouts and residuals
+stay float32 at "highest", since the PRE is a near-cancellation bf16
+cannot resolve and the CP scores must stay exchangeable with the
+calibration's. A "bf16" fine-tune autocasts the plain module (K4-K7 are
+float32), so it launches no K4-K7.
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ from typing import Callable
 import torch
 
 from ..experiments.common import sample_params
-from ..models import FNO2d, make_fused_apply, make_fused_train_apply
+from ..models import (FNO2d, make_fused_apply, make_fused_train_apply, with_activation_dtype,
+                      with_train_precision)
 from ..train.loops import fit
 from ..train.losses import mse
 from ..train.rollout import autoregressive_rollout, validation_AR
@@ -29,11 +35,15 @@ from .acquisition import acquire_cp, acquire_cp_marginal, acquire_pre, acquire_r
 __all__ = ["active_learning_loop"]
 
 
-def _applies(model):
-    """(rollout apply, fine-tune apply) of `model`."""
-    if isinstance(model, FNO2d):
-        return make_fused_apply(model), make_fused_train_apply(model)
-    return model, model
+def _applies(model, train_precision="highest"):
+    """(rollout apply, fine-tune apply at `train_precision`) of `model`."""
+    if train_precision == "bf16":
+        train_apply = with_activation_dtype(model)
+    elif isinstance(model, FNO2d):
+        train_apply = with_train_precision(make_fused_train_apply(model), train_precision)
+    else:
+        train_apply = with_train_precision(model, train_precision)
+    return (make_fused_apply(model) if isinstance(model, FNO2d) else model), train_apply
 
 
 def active_learning_loop(
@@ -61,13 +71,8 @@ def active_learning_loop(
     train_precision: str = "highest",
 ):
     """Returns (model.state_dict(), test_mse_history, sims_sampled_history)."""
-    if train_precision != "highest":
-        raise NotImplementedError(
-            f"train_precision={train_precision!r} (bf16 activations or matmul precision) "
-            "waits for the port's training options (ROADMAP Queue 1 item 8); the port "
-            "trains in full float32 ('highest')")
     loss_func = loss_func or mse
-    roll_apply, train_apply = _applies(model)
+    roll_apply, train_apply = _applies(model, train_precision)
     test_mse, sims_sampled = [], []
 
     def rollout_mse():

@@ -11,11 +11,14 @@ so `python -m cppre_torch.experiments.<family>` runs each as a script.
 
 import importlib
 
-__all__ = ["advection", "al_advection", "al_more", "burgers", "gs", "initial", "jorek", "mhd",
-           "ns", "pi_advection", "pi_wave", "pipeline", "wave"]
+from .common import latin_hypercube, stacked_fields, unstack_fields
+
+_FAMILIES = ("advection", "al_advection", "al_more", "burgers", "gs", "initial", "jorek",
+             "mhd", "ns", "pi_advection", "pi_wave", "pipeline", "wave")
+__all__ = list(_FAMILIES) + ["latin_hypercube", "stacked_fields", "unstack_fields"]
 
 
 def __getattr__(name):
-    if name in __all__:
+    if name in _FAMILIES:
         return importlib.import_module(f".{name}", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

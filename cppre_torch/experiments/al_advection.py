@@ -6,6 +6,9 @@ its PRE, then run the CP / PRE / RAND acquisition loops (5 iterations,
 alpha 0.5) and report the test-MSE and sims-sampled histories of each
 acquisition function. Plain torch on the card: the 1-D path has no kernel.
 
+`train_precision` wraps the pretraining and the loops' fine-tunes
+(`models.with_train_precision`); rollouts and residuals stay at "highest".
+
 cppre starts every acquisition function from the same pretrained params;
 the port trains its module in place, so `run` loads the pretrained
 `state_dict` back into the model before each function.
@@ -21,7 +24,7 @@ import torch
 
 from ..al import active_learning_loop
 from ..cp.inductive import modulation_func, ncf_metric_joint
-from ..models import FNO1d
+from ..models import FNO1d, with_train_precision
 from ..residuals.advection import PRE_Advection
 from ..solvers.advection1d import Advection1D
 from ..train.loops import fit
@@ -40,11 +43,6 @@ def run(acq: str = "all", config: dict | None = None, seed: int = 0, verbose: bo
     """Returns {acquisition function: {"test_mse", "sims_sampled",
     "state_dict"}}: cppre's two histories and the weights that function's
     fine-tunes ended with."""
-    if train_precision != "highest":
-        raise NotImplementedError(
-            f"train_precision={train_precision!r} (bf16 activations or matmul precision) "
-            "waits for the port's training options (ROADMAP Queue 1 item 8); the port "
-            "trains in full float32 ('highest')")
     cfg = dict(AL_CONFIG, **(config or {}))
     T_in, T_out, step = cfg["T_in"], cfg["T_out"], cfg["Step"]
     sim = Advection1D(cfg["Nx"], cfg["Nt"], cfg["x_min"], cfg["x_max"], cfg["t_end"],
@@ -57,7 +55,8 @@ def run(acq: str = "all", config: dict | None = None, seed: int = 0, verbose: bo
 
     model = FNO1d(T_in, step, cfg["Modes"], cfg["Variables"], cfg["Width"], device=device,
                   generator=torch.Generator().manual_seed(seed))
-    fit(model, model, train_a, train_u, test_a[:10], test_u[:10], epochs=cfg["Epochs"],
+    # pretrain at the precision of the loops' fine-tunes
+    fit(with_train_precision(model, train_precision), model, train_a, train_u, test_a[:10], test_u[:10], epochs=cfg["Epochs"],
         batch_size=cfg["Batch Size"], step=step, T_out=T_out, loss_func=mse_loss,
         lr=cfg["Learning Rate"], seed=seed)
     pretrained = copy.deepcopy(model.state_dict())
@@ -83,7 +82,7 @@ def run(acq: str = "all", config: dict | None = None, seed: int = 0, verbose: bo
             n_iterations=cfg["n_iterations"], n_pred=cfg["n_pred"],
             alpha=cfg["alpha"], epochs=cfg["Epochs"],
             batch_size=cfg["Batch Size"], step=step, T_out=T_out,
-            lr=1e-3, seed=seed, verbose=verbose)
+            lr=1e-3, seed=seed, verbose=verbose, train_precision=train_precision)
         results[f] = {"test_mse": mse_hist, "sims_sampled": sampled,
                       "state_dict": copy.deepcopy(state)}
         if verbose:

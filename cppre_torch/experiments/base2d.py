@@ -13,9 +13,15 @@ The keywords are cppre's; the port defaults to the kernels. On the CPU the
 kernels take their plain versions. Everything runs on `device`, the card
 unless the caller asks for the CPU.
 
+`train_precision` scopes the whole train step, its backward included
+(`models.with_train_precision`): "high" and "default" run its float32
+matrix products in TF32 on the card (through K4-K7 the kernels stay float32
+and the scope reaches only the glue's products); "bf16" autocasts a plain
+training apply to bfloat16 activations and refuses `fused_train`, as cppre
+does. The calibration and prediction rollouts always run at "highest".
+
 Not ported yet, and refused with NotImplementedError rather than run some
-other way: `mesh=` (the parallel layer), `train_precision` other than
-"highest" (bf16 activations or matmul precision) and `plots_dir` (plots).
+other way: `mesh=` (the parallel layer) and `plots_dir` (plots).
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..models import FNO2d, make_fused_apply, make_fused_train_apply
+from ..models import FNO2d, make_fused_apply, make_fused_train_apply, with_train_precision
 from ..train.loops import fit
 from ..train.losses import lp_loss
 from ..train.normalizers import Identity, MinMaxNormalizer
@@ -54,9 +60,6 @@ def run_2d_cp(*, data, residual_fn: Callable, cfg: dict, mode: str = "joint", pa
     test) losses; empty when `params` was given)."""
     if mesh is not None:
         raise NotImplementedError("run_2d_cp(mesh=...) waits for the port's parallel layer")
-    if train_precision != "highest":
-        raise NotImplementedError(f"train_precision={train_precision!r} is not ported; the "
-                                  "port trains in full float32 ('highest')")
     if cfg.get("plots_dir"):
         raise NotImplementedError("plots (cfg['plots_dir']) are not ported yet")
     if mode not in ("joint", "marginal"):
@@ -81,9 +84,13 @@ def run_2d_cp(*, data, residual_fn: Callable, cfg: dict, mode: str = "joint", pa
         if n_train <= 0:
             raise ValueError("params not given and n_train == 0")
         tr_a, tr_u = a_enc[:n_train], u_enc[:n_train]
+        if fused_train and train_precision == "bf16":
+            raise ValueError("train_precision='bf16' needs the plain training path (the "
+                             "kernels K4-K7 are float32); drop fused_train")
         # fused: every forward leg (remat recompute included) runs K4/K5,
-        # the backward K6/K7
-        train_apply = make_fused_train_apply(model) if fused_train else model
+        # the backward K6/K7; the precision wraps training only
+        train_apply = with_train_precision(
+            make_fused_train_apply(model) if fused_train else model, train_precision)
         _, train_losses = fit(train_apply, model, tr_a, tr_u, tr_a[-5:],
                               tr_u[-5:], epochs=cfg["Epochs"], batch_size=cfg["Batch Size"],
                               step=step, T_out=T_out, loss_func=lp_loss,

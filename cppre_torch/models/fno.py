@@ -33,6 +33,7 @@ FNO1d [BS, Nvar, Nx, T_in] -> [BS, Nvar, Nx, step].
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -42,7 +43,114 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 __all__ = ["SpectralConv1d", "SpectralConv2d", "FNO1d", "FNO2d", "FNO_multi1d", "FNO_multi2d",
-           "count_params", "dropout", "get_grid"]
+           "count_params", "dropout", "get_grid", "precision_scope", "with_matmul_precision",
+           "activation_dtype_scope", "with_activation_dtype", "train_scope", "with_train_precision"]
+
+
+# ---------------------------------------------------------------------------
+# Training precision. The CP phase needs full float32: TF32 or bf16 products
+# make a forward depend on the batch shape, which breaks the exchangeability
+# of calibration and prediction rollouts, and the physics residual is a
+# near-cancellation that bf16 fields cannot resolve. Training does not: SGD
+# noise dwarfs the rounding. So only training applies are wrapped.
+#
+# JAX fixes a precision when it traces, for the forward and its VJP alike.
+# Torch runs the backward, and the checkpoint recompute inside it, after the
+# wrapped call has returned, so a wrapper that scoped only its own call
+# would train the backward at full precision. The wrappers therefore carry
+# their scope (`.scope`), and a train step enters `train_scope(apply_fn)`
+# around the forward and `loss.backward()` (`train.loops.make_train_step`).
+# ---------------------------------------------------------------------------
+
+# cppre's precision names -> torch's float32 matmul precision
+_MATMUL_PRECISION = {"highest": "highest", "high": "high", "default": "medium"}
+
+
+@contextlib.contextmanager
+def precision_scope(precision: str):
+    """Run float32 matrix products at `precision` inside the block:
+    "highest" (full float32), "high" (TF32 on the card) or "default"
+    (torch's "medium": TF32 on the card, bf16 products where the CPU has
+    them). cuDNN's TF32 follows: off at "highest", on otherwise. The
+    previous matmul precision and `torch.backends.cudnn.allow_tf32` come
+    back on exit, also on an exception."""
+    if precision not in _MATMUL_PRECISION:
+        raise ValueError(f"unknown precision {precision!r}; one of "
+                         f"{sorted(_MATMUL_PRECISION)}")
+    old = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision(_MATMUL_PRECISION[precision])
+    torch.backends.cudnn.allow_tf32 = precision != "highest"
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(old[0])
+        torch.backends.cudnn.allow_tf32 = old[1]
+
+
+def with_matmul_precision(apply_fn, precision: str):
+    """`apply_fn` run under `precision_scope(precision)`, tagged with that
+    scope (`.scope`) for the train step's backward. Wrap only training
+    applies: the calibration and prediction rollouts stay at "highest"."""
+    if precision not in _MATMUL_PRECISION:
+        raise ValueError(f"unknown precision {precision!r}; one of "
+                         f"{sorted(_MATMUL_PRECISION)}")
+
+    def wrapped(*args, **kwargs):
+        with precision_scope(precision):
+            return apply_fn(*args, **kwargs)
+
+    wrapped.scope = functools.partial(precision_scope, precision)
+    return wrapped
+
+
+@contextlib.contextmanager
+def activation_dtype_scope(dtype):
+    """Autocast to `dtype` inside the block (None: native float32), on the
+    CPU and, where there is one, the card: matrix products, einsums and
+    linear layers take `dtype` inputs and give `dtype` outputs; parameters
+    stay float32."""
+    with contextlib.ExitStack() as stack:
+        if dtype is not None:
+            stack.enter_context(torch.autocast("cpu", dtype=dtype))
+            if torch.cuda.is_available():
+                stack.enter_context(torch.autocast("cuda", dtype=dtype))
+        yield
+
+
+def with_activation_dtype(apply_fn, dtype=torch.bfloat16):
+    """Mixed-precision TRAINING apply: `dtype` activations over float32
+    master weights. The forward (and its checkpoint recompute) runs under
+    `activation_dtype_scope(dtype)`, so the DFT-as-matmul spectral path and
+    the channel maps contract in `dtype`; the output comes back as float32.
+    bf16 shares float32's exponent range, so no loss scaling is needed.
+    Tagged with its scope (`.scope`) for the train step's backward. The
+    kernels K4-K7 take float32 only: wrap a plain apply."""
+
+    def wrapped(*args, **kwargs):
+        with activation_dtype_scope(dtype):
+            out = apply_fn(*args, **kwargs)
+        return out.float() if out.dtype == dtype else out
+
+    wrapped.scope = functools.partial(activation_dtype_scope, dtype)
+    return wrapped
+
+
+def with_train_precision(apply_fn, train_precision: str):
+    """A training apply at `train_precision`, cppre's keyword: "highest"
+    gives `apply_fn` itself, "bf16" `with_activation_dtype(apply_fn)`, and
+    "high" or "default" `with_matmul_precision(apply_fn, ...)`."""
+    if train_precision == "highest":
+        return apply_fn
+    if train_precision == "bf16":
+        return with_activation_dtype(apply_fn)
+    return with_matmul_precision(apply_fn, train_precision)
+
+
+def train_scope(apply_fn):
+    """The scope a train step enters around the forward and the backward
+    of `apply_fn`: the one `with_matmul_precision` or
+    `with_activation_dtype` tagged it with, else none."""
+    return getattr(apply_fn, "scope", contextlib.nullcontext)()
 
 
 def _uniform_(t, bound, generator):

@@ -2,7 +2,8 @@
 loops (port of `cppre.train`)."""
 
 from .losses import LpLoss, lp_loss, mae, mse
-from .loops import TrainState, fit, make_optimizer, make_train_step, train_one_epoch_AR
+from .loops import (TrainState, fit, make_optimizer, make_train_step, resolve_remat_policy,
+                    train_one_epoch_AR)
 from .normalizers import GaussianNormalizer, Identity, MinMaxNormalizer, RangeNormalizer
 from .rollout import autoregressive_rollout, validation_AR
 
@@ -25,4 +26,5 @@ __all__ = [
     "make_train_step",
     "train_one_epoch_AR",
     "fit",
+    "resolve_remat_policy",
 ]

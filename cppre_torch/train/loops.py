@@ -9,7 +9,18 @@ under `jit`; here it is a Python loop. With `remat` (the default) each step
 runs under `torch.utils.checkpoint` (non-reentrant), so the backward
 recomputes a step's forward instead of keeping its activations: through
 `models.fused.make_fused_train_apply`, every block forward then runs K4
-twice per step, once forward and once in the recompute.
+twice per step, once forward and once in the recompute. A `remat_policy`
+(`resolve_remat_policy`) saves some of a step's results instead, a
+selective checkpoint: "dots" keeps every matrix product's output, so the
+recompute re-runs none of them. Policies change what is recomputed, never
+values. Through K4-K7 the contractions live inside the kernels, which the
+dispatcher does not see, so a dots policy saves only the glue's products,
+as `jax.checkpoint`'s policy does around cppre's `pallas_call`s.
+
+An apply wrapped by `models.with_matmul_precision` or
+`with_activation_dtype` carries its scope; the train step enters it around
+the forward and the backward (the checkpoint recompute runs inside the
+backward), so both run at the wrapped precision.
 
 The optimizer is the counterpart of the optax chain
 clip_by_global_norm -> adam(exponential_decay(staircase)):
@@ -22,13 +33,16 @@ and imaginary parts of complex weights alike.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..models.fno import train_scope
+
 __all__ = ["Optimizer", "TrainState", "make_optimizer", "rollout_loss", "make_train_step",
-           "train_one_epoch_AR", "fit"]
+           "train_one_epoch_AR", "fit", "resolve_remat_policy"]
 
 
 class Optimizer:
@@ -80,19 +94,69 @@ class TrainState(NamedTuple):
     apply_fn: Callable = None
 
 
-def _no_remat_policy(remat_policy):
-    if remat_policy is not None:
-        raise NotImplementedError("remat_policy other than None (a selective activation "
-                                  "checkpoint) is not ported yet; remat=True recomputes "
-                                  "every step")
+# the aten matrix products a dots policy saves: all of them, or those
+# without a batch dimension (jax's dots_with_no_batch_dims_saveable)
+_DOTS = ("mm", "addmm", "bmm", "baddbmm", "matmul")
+_DOTS_NO_BATCH = ("mm", "addmm")
+# the accepted names: the short aliases and the jax.checkpoint_policies
+# names they stand for, and jax's save-nothing and save-everything policies
+_POLICY_NAMES = {"dots": _DOTS, "checkpoint_dots": _DOTS,
+                 "dots_no_batch": _DOTS_NO_BATCH,
+                 "dots_with_no_batch_dims_saveable": _DOTS_NO_BATCH,
+                 "nothing_saveable": (), "everything_saveable": None}
+
+
+def _save_ops(names):
+    """A selective-checkpoint policy: save the outputs of the aten ops
+    named in `names` (None: every op), recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    ops = None if names is None else {getattr(torch.ops.aten, n).default for n in names}
+
+    def policy(ctx, op, *args, **kwargs):
+        if ops is None or op in ops:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+def resolve_remat_policy(name):
+    """A remat-policy spec -> a selective-checkpoint policy
+    (`torch.utils.checkpoint.create_selective_checkpoint_contexts`'s
+    `policy_fn_or_list`), or None: full recomputation, save nothing.
+
+    Accepts None, a callable (passed through), the aliases "dots" and
+    "dots_no_batch", or the jax names they stand for, "checkpoint_dots" and
+    "dots_with_no_batch_dims_saveable", and "nothing_saveable" and
+    "everything_saveable". cppre accepts any `jax.checkpoint_policies`
+    name; the other names have no torch counterpart and raise ValueError."""
+    if name is None or callable(name):
+        return name
+    if name not in _POLICY_NAMES:
+        raise ValueError(f"unknown remat policy {name!r}; one of {sorted(_POLICY_NAMES)}, "
+                         "None or a callable")
+    return _save_ops(_POLICY_NAMES[name])
+
+
+def _checkpointed(body, policy):
+    """`body` under a non-reentrant checkpoint; with `policy`, a selective
+    one that saves what the policy keeps."""
+    if policy is None:
+        return functools.partial(checkpoint, body, use_reentrant=False)
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return functools.partial(checkpoint, body, use_reentrant=False,
+                             context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                          policy))
 
 
 def rollout_loss(apply_fn, xx, yy, step: int, T_out: int, loss_func, remat: bool = True,
                  remat_policy=None):
     """Sum over chunks of loss_func(im, y_chunk) along an AR rollout of
     `apply_fn` (x -> next `step` frames). Returns (total_chunk_loss, pred
-    [..., T_out]). With `remat` each step is checkpointed."""
-    _no_remat_policy(remat_policy)
+    [..., T_out]). With `remat` each step is checkpointed, selectively
+    under `remat_policy` (`resolve_remat_policy`)."""
     n = T_out // step
     if n == 1:
         # single-shot (step == T_out): no AR carry, also for step > T_in
@@ -103,10 +167,11 @@ def rollout_loss(apply_fn, xx, yy, step: int, T_out: int, loss_func, remat: bool
         im = apply_fn(xx)
         return im, loss_func(im, y)
 
+    step_fn = _checkpointed(body, resolve_remat_policy(remat_policy)) if remat else body
     total, preds = 0.0, []
     for t in range(n):
         y = yy[..., t * step:(t + 1) * step]
-        im, loss = checkpoint(body, xx, y, use_reentrant=False) if remat else body(xx, y)
+        im, loss = step_fn(xx, y)
         total = total + loss
         preds.append(im)
         xx = torch.cat((xx[..., step:], im), dim=-1)
@@ -116,13 +181,16 @@ def rollout_loss(apply_fn, xx, yy, step: int, T_out: int, loss_func, remat: bool
 def make_train_step(apply_fn, optimizer: Optimizer, step: int, T_out: int, loss_func,
                     remat: bool = True, remat_policy=None):
     """(xx, yy) -> (loss, full_loss): one optimizer step on the rollout loss;
-    full_loss is loss_func over the whole predicted trajectory."""
-    _no_remat_policy(remat_policy)
+    full_loss is loss_func over the whole predicted trajectory. The forward
+    and the backward run inside `apply_fn`'s scope (`models.train_scope`)."""
+    resolve_remat_policy(remat_policy)    # refuse an unknown name here
 
     def train_step(xx, yy):
         optimizer.zero_grad()
-        loss, pred = rollout_loss(apply_fn, xx, yy, step, T_out, loss_func, remat=remat)
-        loss.backward()
+        with train_scope(apply_fn):
+            loss, pred = rollout_loss(apply_fn, xx, yy, step, T_out, loss_func, remat=remat,
+                                      remat_policy=remat_policy)
+            loss.backward()
         optimizer.step()
         with torch.no_grad():
             full_loss = loss_func(pred, yy)

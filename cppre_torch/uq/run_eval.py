@@ -11,8 +11,12 @@ Training: the dropout-free variants (the base FNO behind Deterministic,
 AER and PRE, the ensemble members, SWAG, MLE and the Bayesian body) train
 through `models.fused.make_fused_train_apply`, kernels K4-K7 on the card;
 the dropout FNO trains through its own forward (deterministic, as in
-cppre). Everything runs on `device`, the card unless the caller asks for
-the CPU. `Train Precision` other than "highest" is refused.
+cppre). `Train Precision` wraps the training only
+(`models.with_train_precision`): "high" and "default" scope the train steps
+over the same routes; "bf16" autocasts the plain modules (K4-K7 are
+float32). The evaluation rollouts stay at "highest", since the CP methods
+calibrate on them. Everything runs on `device`, the card unless the caller
+asks for the CPU.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import os
 
 import torch
 
-from ..models import FNO2d, make_fused_train_apply
+from ..models import FNO2d, make_fused_train_apply, with_activation_dtype, with_train_precision
 from ..models.swag import SWAG
 from ..models.variants import FNO2dBayesian, make_dropout_fno, make_mle_fno
 from ..train.loops import fit, make_optimizer
@@ -74,10 +78,13 @@ def run(case: str = "Wave", config_path: str | None = None, overrides: dict | No
     cfg.update(overrides or {})
     seed = cfg.get("Seed", 0)
     train_prec = cfg.get("Train Precision", "highest")
-    if train_prec != "highest":
-        raise NotImplementedError(
-            f"Train Precision {train_prec!r} waits for the port's training options (ROADMAP "
-            f"Queue 1 item 8); the port trains in full float32 ('highest')")
+
+    def train_apply(model):
+        """`model`'s training apply at `Train Precision`: through K4-K7,
+        except under "bf16", which autocasts the module."""
+        if train_prec == "bf16":
+            return with_activation_dtype(model)
+        return with_train_precision(make_fused_train_apply(model), train_prec)
 
     # The in-distribution data always backs training, the normalizers and
     # the PRE's physics; `Dist` selects only the evaluation data.
@@ -152,7 +159,7 @@ def run(case: str = "Wave", config_path: str | None = None, overrides: dict | No
         return model
 
     def fit_fno(model, fit_seed):
-        fit(make_fused_train_apply(model), model, tr_a, tr_u, tr_a[-2:], tr_u[-2:],
+        fit(train_apply(model), model, tr_a, tr_u, tr_a[-2:], tr_u[-2:],
             seed=fit_seed, **fit_kw)
 
     memo = {}
@@ -179,20 +186,18 @@ def run(case: str = "Wave", config_path: str | None = None, overrides: dict | No
         if uq == "Dropout":
             model = make_dropout_fno(**kw, **init(seed))
             return cached("dropout", model,
-                          lambda m: fit(m, m, tr_a, tr_u, tr_a[-2:], tr_u[-2:], seed=seed,
-                                        **fit_kw)), None
+                          lambda m: fit(with_train_precision(m, train_prec), m, tr_a, tr_u,
+                                        tr_a[-2:], tr_u[-2:], seed=seed, **fit_kw)), None
         if uq == "Bayesian":
             model = FNO2dBayesian(**kw, **init(seed))
             make_step = lambda fn, opt, s, t: make_bayesian_train_step(fn, opt, s, t,
                                                                        model=model)
             return cached("bayesian", model, lambda m: _fit_generic(
-                m, make_fused_train_apply(m), tr_a, tr_u, cfg, make_step, seed,
-                draws=True)), None
+                m, train_apply(m), tr_a, tr_u, cfg, make_step, seed, draws=True)), None
         if uq == "MLE":
             model = make_mle_fno(**kw, **init(seed))
             return cached("mle", model, lambda m: _fit_generic(
-                m, make_fused_train_apply(m), tr_a, tr_u, cfg, make_mle_train_step,
-                seed)), None
+                m, train_apply(m), tr_a, tr_u, cfg, make_mle_train_step, seed)), None
         if uq == "Ensemble":
             members = [cached(f"ens{s}", FNO2d(**kw, **init(seed + 100 + s)),
                               lambda m, s=s: fit_fno(m, seed + s))
@@ -205,7 +210,7 @@ def run(case: str = "Wave", config_path: str | None = None, overrides: dict | No
                     print(f"[train-cache] swag <- {cache_path('swag')}.npz", flush=True)
                 swag = SWAG(model).load(cache_path("swag") + ".npz")
             else:
-                swag = fit_swag(make_fused_train_apply(model), model, tr_a, tr_u,
+                swag = fit_swag(train_apply(model), model, tr_a, tr_u,
                                 seed=seed, **fit_kw)
                 if cache_dir:
                     os.makedirs(cache_dir, exist_ok=True)

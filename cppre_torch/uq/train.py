@@ -12,7 +12,8 @@ steps are checkpointed, as `train.loops.rollout_loss`'s are. `apply_fn` is
 the model or `models.fused.make_fused_train_apply(model)` (K4/K5 forward,
 K6/K7 backward on the card). A Bayesian step draws each rollout step's eps
 from a `torch.Generator` before the checkpointed body, so the recompute
-sees the same head.
+sees the same head. Each step runs its forward and backward inside
+`apply_fn`'s precision scope (`models.train_scope`).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..models.fno import train_scope
 from ..models.swag import SWAG
 from ..models.variants import bayes_kl_loss
 from ..train.loops import TrainState, make_optimizer
@@ -58,8 +60,9 @@ def make_mle_train_step(apply_fn, optimizer, step: int, T_out: int):
 
     def train_step(xx, yy):
         optimizer.zero_grad()
-        loss = mle_rollout_loss(apply_fn, xx, yy, step, T_out)
-        loss.backward()
+        with train_scope(apply_fn):
+            loss = mle_rollout_loss(apply_fn, xx, yy, step, T_out)
+            loss.backward()
         optimizer.step()
         return loss.detach()
 
@@ -107,8 +110,9 @@ def make_bayesian_train_step(apply_fn, optimizer, step: int, T_out: int,
     def train_step(xx, yy, generator):
         eps = [_draw_eps(model, generator) for _ in range(T_out // step)]
         optimizer.zero_grad()
-        loss = bayesian_rollout_loss(apply_fn, model, xx, yy, step, T_out, eps, prior_sigma)
-        loss.backward()
+        with train_scope(apply_fn):
+            loss = bayesian_rollout_loss(apply_fn, model, xx, yy, step, T_out, eps, prior_sigma)
+            loss.backward()
         optimizer.step()
         return loss.detach()
 

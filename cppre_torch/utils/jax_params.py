@@ -8,7 +8,8 @@ so flax -> port -> `fno_params_from_torch(port.state_dict(), template)`
 returns the flax params bit for bit. `fno2d_bayes_from_jax` loads
 `cppre.models.variants.FNO2dBayesian` (its head's mu and log-sigma too),
 `cae_from_jax` and `inr_from_jax` the Grad-Shafranov surrogates (flax
-conv kernels HWIO, dense kernels [in, out]). No JAX import is needed here.
+conv kernels HWIO, dense kernels [in, out]), `odefunc_from_jax` the
+neural-ODE vector field `cppre.node.ODEFunc`. No JAX import is needed here.
 
 `normalizer_from_jax(norm)` rebuilds a `cppre` affine normalizer through
 `from_ab`, on the card unless the caller passes `device="cpu"`.
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 __all__ = ["cae_from_jax", "fno1d_from_jax", "fno2d_bayes_from_jax", "fno2d_from_jax",
-           "inr_from_jax", "normalizer_from_jax"]
+           "inr_from_jax", "normalizer_from_jax", "odefunc_from_jax"]
 
 
 def _dense(p):
@@ -134,6 +135,16 @@ def inr_from_jax(params_np, model):
         new[f"layers.{i}.weight"], new[f"layers.{i}.bias"] = _dense(tp[f"Dense_{i}"])
     new["head.weight"], new["head.bias"] = _dense(tp[f"Dense_{model.depth}"])
     return _load(model, new, "same n_params/width/depth/n_freqs?")
+
+
+def odefunc_from_jax(params_np, model):
+    """Load flax `ODEFunc` params (`Dense_0..2`, kernel [in, out]) into the
+    port's `ODEFunc` in place (weight = kernel^T). Returns the model."""
+    tp = _tree(params_np)
+    new = {}
+    for i in range(3):
+        new[f"dense{i}.weight"], new[f"dense{i}.bias"] = _dense(tp[f"Dense_{i}"])
+    return _load(model, new, "same hidden_dim/state_dim/time_dependent?")
 
 
 def normalizer_from_jax(norm, device="cuda"):

@@ -208,8 +208,10 @@ def test_loop_refuses_what_it_cannot_do():
     case = _port_case(0)
     with pytest.raises(ValueError, match="cal_scores_marginal"):
         al.active_learning_loop(acq_func="CP_MARGINAL", epochs=0, **case, **KW)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        al.active_learning_loop(acq_func="PRE", epochs=0, train_precision="bf16", **case, **KW)
+    # "highest", "high", "default" and "bf16" run (tests/test_torch_train_options.py);
+    # any other precision is refused
+    with pytest.raises(ValueError, match="unknown precision"):
+        al.active_learning_loop(acq_func="PRE", epochs=0, train_precision="fp8", **case, **KW)
 
 
 # ---- the drivers ----------------------------------------------------------------------

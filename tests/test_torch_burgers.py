@@ -85,8 +85,10 @@ def test_burgers_window_longer_than_the_data(same_weights):
 
 
 def test_burgers_refuses_other_train_precisions():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        burgers.run("joint", config=BURGERS_TINY, train_precision="bf16", device="cpu")
+    """cppre's four precisions run (tests/test_torch_train_options.py); any
+    other name is refused."""
+    with pytest.raises(ValueError, match="unknown precision"):
+        burgers.run("joint", config=BURGERS_TINY, train_precision="fp8", device="cpu")
 
 
 def test_fit_smoke():

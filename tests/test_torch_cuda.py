@@ -1373,3 +1373,122 @@ def test_pi_wave_and_al_wave_launch_their_kernels(dev):
     counts = K.launch_counts()
     assert all(counts[k] > 0 for k in ("K4", "K5", "K6", "K7", "K8")), counts
     assert counts["K8-bwd"] == 0 and out["sims_sampled"] == [3]
+
+
+# ---- sets, neural ODEs and the training options ---------------------------------------
+
+def test_set_pre_batched_on_the_card_matches_the_cpu(dev):
+    from cppre_torch.sets import set_PRE, set_pre_batched
+
+    r = np.random.default_rng(110)
+    t = np.arange(198) * 0.1010101
+    x = (np.cos(t * r.uniform(0.8, 1.2, (37, 1))) * r.uniform(0.5, 1.5, (37, 1))
+         + 0.01 * r.standard_normal((37, 198))).astype(np.float32)
+    lo, up = set_pre_batched(x, device=dev)
+    clo, cup = set_pre_batched(x, device="cpu")
+    assert lo.is_cuda
+    # 2e-5: each float32 result lies up to ~9e-6 of max|bound| from the
+    # float64 bounds (two FFT libraries' rounding of the padded trajectory
+    # reach the radii through |residual|)
+    _close(lo.cpu(), clo, 2e-5)
+    _close(up.cpu(), cup, 2e-5)
+    padded = torch.nn.functional.pad(torch.tensor(x, device=dev), (1, 1))
+    assert bool((lo <= padded).all()) and bool((up >= padded).all())
+    one = np.array(set_PRE(x[0], device=dev))
+    scale = float(cup.abs().max())
+    assert np.abs(one[:, 0] - clo[0].numpy()).max() <= 2e-4 * scale
+
+
+def test_node_family_on_the_card(dev):
+    """A batched family equals the per-sample loop on the card (1e-6 of
+    max|y|, each sample with its own steps), and the CPU's within 1e-4: the
+    random field's flow grows the two devices' float32 rounding (1.2e-5
+    measured at this seed)."""
+    from cppre_torch.node import ODEFunc, neural_odeint
+
+    for time_dependent in (False, True):
+        model = ODEFunc(50, 2, time_dependent, device=dev,
+                        generator=torch.Generator().manual_seed(111))
+        t = np.linspace(1.0, 8.0, 30).astype(np.float32)
+        y0 = np.random.default_rng(112).uniform(-1.5, 1.5, (16, 2)).astype(np.float32)
+        with torch.no_grad():
+            fam, stats = neural_odeint(model, y0, t, return_stats=True)
+            loop = torch.stack([neural_odeint(model, y, t) for y in y0])
+            cpu = neural_odeint(model.to("cpu"), y0, t)
+        _close(fam, loop, 1e-6)
+        _close(fam.cpu(), cpu, 1e-4)
+        assert stats["accepted"].is_cuda and int(stats["accepted"].min()) > 0
+
+
+def test_graphed_fit_matches_the_cpu(dev):
+    """`fit_node` on the card replays a CUDA graph of each epoch's loss and
+    gradient (captured after an eager first epoch, again as the step count
+    moves): its losses and weights after 8 epochs against the eager fit on
+    the CPU from the same seed (1e-4 relative, 1e-4 of each tensor's max),
+    and the gradients it leaves are the graph's own."""
+    from cppre_torch.node import ODEFunc, fit_node
+    from cppre_torch.node.experiments import _domain, _trajectories
+
+    t = _domain("sho", 60, None)
+    target = _trajectories("sho", 1, t, 119)[0]
+    state_cpu, losses_cpu = fit_node(ODEFunc(50, 2, device="cpu"), target[0], t, target,
+                                     epochs=8, seed=120)
+    card = ODEFunc(50, 2, device=dev)
+    state, losses = fit_node(card, target[0], t, target, epochs=8, seed=120)
+    np.testing.assert_allclose(losses, losses_cpu, rtol=1e-4)
+    for k, v in state.items():
+        _close(v.cpu(), state_cpu[k], 1e-4)
+    assert card.dense0.weight.grad is not None and card.batch_invariant
+
+
+def test_node_run_and_fit_on_the_card(dev):
+    from cppre_torch.node.experiments import run
+
+    out = run("dho", n_cal=8, n_pred=4, Nt=30, epochs=2, verbose=False, device=dev)
+    assert np.isfinite(out["mse"]) and 0 <= out["coverage"] <= 1
+    assert len(out["fit_losses"]) == 2 and np.isfinite(out["fit_losses"]).all()
+    assert next(out["model"].parameters()).is_cuda
+
+
+@pytest.mark.parametrize("precision", ["high", "default", "bf16"])
+def test_train_step_at_a_precision_launches_and_restores(dev, precision):
+    """"high" and "default" keep the fused route (K4 12, K5 2, K6 6, K7 1 a
+    rollout step, recompute included); "bf16" autocasts the plain module and
+    launches none. The flags are back at "highest" / False after the step."""
+    from cppre_torch.models import with_train_precision
+
+    model = FNO2d(1, 1, 4, 4, 2, 8, device=dev, generator=torch.Generator().manual_seed(113))
+    apply = model if precision == "bf16" else make_fused_train_apply(model)
+    step = make_train_step(with_train_precision(apply, precision),
+                           make_optimizer(model.parameters(), 1e-3), 1, 3, lp_loss)
+    xx, yy = _randn((2, 2, 20, 18, 1), 114, dev), _randn((2, 2, 20, 18, 3), 115, dev)
+    K.reset_launch_counts()
+    loss, _ = step(xx, yy)
+    counts = K.launch_counts()
+    assert np.isfinite(float(loss))
+    want = ({"K4": 0, "K5": 0, "K6": 0, "K7": 0} if precision == "bf16"
+            else {"K4": 36, "K5": 6, "K6": 18, "K7": 3})
+    assert {k: counts[k] for k in want} == want
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_remat_policies_on_the_card(dev, fused):
+    from cppre_torch.train.loops import rollout_loss
+
+    def loss_and_grads(policy):
+        model = FNO2d(1, 1, 4, 4, 2, 8, device=dev,
+                      generator=torch.Generator().manual_seed(116))
+        apply = make_fused_train_apply(model) if fused else model
+        xx, yy = _randn((2, 2, 20, 18, 1), 117, dev), _randn((2, 2, 20, 18, 3), 118, dev)
+        loss, _ = rollout_loss(apply, xx, yy, 1, 3, lp_loss, remat_policy=policy)
+        loss.backward()
+        return loss.detach(), [p.grad for p in model.parameters()]
+
+    ref_loss, ref = loss_and_grads(None)
+    for policy in ("dots", "dots_no_batch", "everything_saveable"):
+        loss, grads = loss_and_grads(policy)
+        _close(loss, ref_loss, 1e-6)
+        for g, r in zip(grads, ref):
+            _close(g, r, 1e-6)

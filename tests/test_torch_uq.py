@@ -422,7 +422,8 @@ def test_evaluate_uq_methods_matches_cppre():
 
 def test_run_eval_wave_end_to_end():
     """`run_eval.run("Wave")` at `tests/test_uq.py`'s tiny overrides, with
-    `Train Precision` at "highest"; any other precision is refused; a case
+    `Train Precision` at "highest"; a name that is not a precision is
+    refused (the others run in tests/test_torch_train_options.py); a case
     simulated beforehand (`case_data`) gives the same run."""
     from cppre_torch.uq.run_eval import run
 
@@ -438,9 +439,9 @@ def test_run_eval_wave_end_to_end():
     again = run("Wave", overrides=dict(ov, UQ=["Deterministic"]), verbose=False, device="cpu",
                 case_data=sim)
     assert again["Deterministic"]["l2"] == res["Deterministic"]["l2"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        run("Wave", overrides=dict(ov, **{"Train Precision": "default"}), verbose=False,
-            device="cpu")
+    with pytest.raises(ValueError, match="unknown precision"):
+        run("Wave", overrides=dict(ov, **{"Train Precision": "fp8"}), verbose=False,
+            device="cpu", case_data=sim)
 
 
 def test_kernel_pre_takes_the_plain_class_on_the_cpu():
