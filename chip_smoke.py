@@ -49,7 +49,9 @@ the training options through K4-K7. Then the joint-CP scores beyond
 the flagships: the time-chunked K3 at cppre's grid-scaling shapes (NS and
 JOREK [12,3,21,512,512], MHD induction [25,6,21,256,256], wave
 [12,26,512,512]) and the flat-layout K10-K12 at the shapes where K1 is
-timed. Phases, one line each:
+timed. Then the parallel layer on a one-rank NCCL mesh at the NS flagship
+(K1, K2, K4-K7) and the utilities, `run_all()` included. Phases, one line
+each:
 
   build      compile the kernels from `cppre_torch/csrc` (nvcc, in parallel);
              then one `ptxas` line per kernel function: registers and spills;
@@ -188,13 +190,31 @@ timed. Phases, one line each:
              device time; the grids of K10, K11 (route, span, shared bytes,
              frames a block) and K12; for the wave kernels the time of the
              one PyTorch call that computes K11 (conv2d over the flat field)
+  parallel   the parallel layer on a one-rank NCCL mesh (`make_mesh()`) at
+             the NS flagship: `CalibratedSurrogate(mesh=...)` against the
+             unsharded surrogate in turns (qhat, predictions, residuals,
+             accept bit for bit; seconds of each), `sharded_fused_cp_scores`
+             over K1's centred form and `sharded_calibrate` against
+             `ns_joint_cp_scores_fused` and `calibrate` (bit for bit; ms),
+             `make_sharded_fused_apply` against `fno2d_forward_fused` (bit for
+             bit; ms), one `make_sharded_train_step` through K4-K7 against
+             `make_train_step` (loss and weights bit for bit),
+             `ns.run(mesh=...)` at 10 + 20 + 10 designs and 1 epoch, a halo
+             stencil (bit for bit against `direct_conv`), an FFT round trip
+             (1e-5) and a pp = 1 pipelined forward (5e-6); each sub-window's
+             K1, K2, K4-K7 launches held exactly
+  utils      `benchmark()` of the fused forward beside `cuda_ms`, `trace()`
+             of one (K4's stages must be in it), whether matplotlib is
+             present and with it `plots_dir` for `wave.run` and `run_efit`,
+             and `run_all()`: one `[run-all]` line per pipeline, every one ok
 
 The launch counters are set to 0 before each main path (NS serve +
 calibrate; NS train; wave; MHD; JOREK; `run_offline`, the window
 `initial`; the UQ runs, windows `uq` (Wave), `uq-out`, `uq-ns` and
 `uq-mhd`; `pi_wave.run`, window `pi`; `al_more.run("wave")`, window `al`;
 the training options, window `train-opts`; each scaling shape; each flat
-family) and read after it: every kernel of
+family; the parallel phase's sub-windows, together window `parallel`) and
+read after it: every kernel of
 that path must have launched in its window. K8's backward counts apart
 from its forward, as `K8-bwd`.
 Then one JSON line of kernel results, the card's name and power limit, and
@@ -302,6 +322,7 @@ PATH_KERNELS = {
     "pi": ("K4", "K5", "K6", "K7", "K8", "K8-bwd"),
     "al": ("K4", "K5", "K6", "K7", "K8"),
     "train-opts": ("K2", "K4", "K5", "K6", "K7"),
+    "parallel": ("K1", "K2", "K4", "K5", "K6", "K7"),
 }
 # the kernels the UQ harness can launch, as its per-method lines print them
 UQ_KERNELS = ("K2", "K4", "K5", "K6", "K7", "K8")
@@ -2699,6 +2720,261 @@ def phase_flat(results, device):
     return windows
 
 
+# ---- the parallel layer and the utilities ------------------------------------
+
+# run_2d_cp(mesh=) through ns.run at the NS flagship's widths, samples and
+# epochs cut
+NS_MESH_CFG = {"Epochs": 1, "n_train": 10, "n_cal": 20, "n_pred": 10}
+
+
+def _window(counts, want, what):
+    """Hold a window's launches of K1, K2 and K4-K7 exactly."""
+    got = {k: counts[k] for k in ("K1", "K2", "K4", "K5", "K6", "K7")}
+    want = {k: want.get(k, 0) for k in got}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    return got
+
+
+def phase_parallel(device):
+    """The parallel layer on a one-rank mesh over the card (NCCL) at the NS
+    flagship's width, each sub-window's launches held exactly. Returns the
+    window "parallel"."""
+    import torch
+    import torch.distributed as dist
+    from cppre_torch.cp import calibrate
+    from cppre_torch.deploy import CalibratedSurrogate
+    from cppre_torch.experiments import ns
+    from cppre_torch.models import fno2d_forward_fused, make_fused_train_apply
+    from cppre_torch.ops import kernels as K
+    from cppre_torch.ops.convops import direct_conv
+    from cppre_torch.ops.kernels import stencil_kernels as sk
+    from cppre_torch.parallel import (fft2_sharded, ifft2_sharded, make_mesh, make_pp_fno_apply,
+                                      make_sharded_fused_apply, make_sharded_train_step,
+                                      sharded_calibrate, sharded_fused_cp_scores,
+                                      stencil_conv_sharded)
+    from cppre_torch.train import MinMaxNormalizer
+    from cppre_torch.train.loops import make_optimizer, make_train_step
+    from cppre_torch.train.losses import lp_loss
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh()
+    dist.barrier()            # NCCL sets its communicator up here, not in a timed call
+    say("parallel-mesh", shape=json.dumps(mesh.shape), device=mesh.device,
+        backend=dist.get_backend(), world=dist.get_world_size())
+    if "nccl" not in str(dist.get_backend()) or mesh.device != device:
+        raise AssertionError("the mesh is not one NCCL rank on the card")
+    total = {k: 0 for k in K.launch_counts()}
+
+    def window(want, what):
+        torch.cuda.synchronize()
+        got = _window(K.launch_counts(), want, what)
+        for k, v in K.launch_counts().items():
+            total[k] += v
+        K.reset_launch_counts()
+        return got
+
+    # CalibratedSurrogate(mesh=) against the unsharded surrogate, bit for bit
+    model = build_model(device)
+    data_np, _ = smooth_fields(N_CAL + N_PRED, T_IN + T_OUT, NX, NY, SEED + 7, layout="fno")
+    data = torch.from_numpy(data_np).to(device)
+    del data_np
+    in_n, out_n = MinMaxNormalizer(data[..., :T_IN]), MinMaxNormalizer(data[..., T_IN:])
+    cal_a, cal_u = data[:N_CAL, ..., :T_IN], data[:N_CAL, ..., T_IN:]
+    new_a = data[N_CAL:, ..., :T_IN]
+    residual_fn = lambda f: K.ns_momentum_residual_fused(f, DT, DX, DY, NU)
+    K.reset_launch_counts()
+    served, secs = [], {"unsharded": [], "sharded": []}
+    for m in (None, mesh, mesh, None):          # in turns
+        srv = CalibratedSurrogate(model, residual_fn, step=STEP, T_out=T_OUT, in_normalizer=in_n,
+                                  out_normalizer=out_n, mode="joint", score="aer+pre",
+                                  fused=True, mesh=m)
+        t0 = time.perf_counter()
+        srv.calibrate(cal_a, cal_u, alpha=ALPHA, eps=EPS)
+        out = srv.predict(new_a)
+        torch.cuda.synchronize()
+        secs["sharded" if m else "unsharded"].append(round(time.perf_counter() - t0, 3))
+        served.append((srv.qhat, out))
+    same = all(torch.equal(served[0][0], q) and all(
+        torch.equal(served[0][1][k], o[k]) for k in ("prediction", "residual", "accept"))
+        for q, o in served[1:])
+    n = T_OUT // STEP
+    # each of the four surrogates: a calibrate and a predict rollout, 3 residuals
+    got = window({"K2": 12, "K4": 4 * 2 * 6 * n, "K5": 4 * 2 * n}, "surrogate")
+    say("parallel-serve", qhat=f"{float(served[1][0]):.6e}", bitwise_vs_unsharded=same,
+        calibrate_predict_s=json.dumps(secs), launches=json.dumps(got, separators=(",", ":")))
+    if not same:
+        raise AssertionError("CalibratedSurrogate(mesh=) differs from the unsharded surrogate")
+    del served, srv, out, data
+
+    # K1 on the rank's rows against the unsharded scores, and the quantile
+    truth_np, pred_np = smooth_fields(N_CAL, T_OUT + 1, NX, NY, SEED + 8)
+    tb, pb = torch.from_numpy(truth_np).to(device), torch.from_numpy(pred_np).to(device)
+    del truth_np, pred_np
+    cell = sk._ns_cell(DT, DX, DY, NU)
+    fn = lambda a, b: sk._diff_stats_routed(a, b, cell, 1, None, "ns", centred=True)
+    scores = sharded_fused_cp_scores(fn, tb, pb, mesh, eps=EPS)
+    ref = K.ns_joint_cp_scores_fused(tb, pb, DT, DX, DY, NU, eps=EPS)
+    q_sh, q_ref = sharded_calibrate(scores, ALPHA, mesh), calibrate(ref, N_CAL, ALPHA)
+    same_scores = torch.equal(scores.full_tensor(), ref)
+    got = window({"K1": 2}, "scores")
+    sh_ms = cuda_ms(lambda: sharded_calibrate(sharded_fused_cp_scores(fn, tb, pb, mesh, eps=EPS),
+                                              ALPHA, mesh))
+    ref_ms = cuda_ms(lambda: calibrate(K.ns_joint_cp_scores_fused(tb, pb, DT, DX, DY, NU,
+                                                                  eps=EPS), N_CAL, ALPHA))
+    K.reset_launch_counts()
+    say("parallel-scores", shape=list(tb.shape), bitwise_scores=same_scores,
+        qhat=f"{float(q_sh):.6e}", qhat_bitwise=bool(torch.equal(q_sh, q_ref)),
+        sharded_ms=f"{sh_ms:.4f}", unsharded_ms=f"{ref_ms:.4f}",
+        launches=json.dumps(got, separators=(",", ":")))
+    if not (same_scores and torch.equal(q_sh, q_ref)):
+        raise AssertionError("sharded K1 scores or quantile differ from the unsharded ones")
+    del tb, pb, scores, ref
+
+    # make_sharded_fused_apply against fno2d_forward_fused, bit for bit
+    x = torch.rand((N_CAL, NVAR, NX, NY, T_IN), generator=torch.Generator(device=device)
+                   .manual_seed(SEED + 9), device=device)
+    sharded_apply = make_sharded_fused_apply(model, mesh)
+    same_apply = torch.equal(sharded_apply(x), fno2d_forward_fused(model, x))
+    got = window({"K4": 12, "K5": 2}, "apply")
+    say("parallel-apply", batch=N_CAL, bitwise=same_apply,
+        ms=f"{cuda_ms(lambda: sharded_apply(x)):.4f}",
+        unsharded_ms=f"{cuda_ms(lambda: fno2d_forward_fused(model, x)):.4f}",
+        launches=json.dumps(got, separators=(",", ":")))
+    K.reset_launch_counts()
+    if not same_apply:
+        raise AssertionError("make_sharded_fused_apply differs from fno2d_forward_fused")
+
+    # one train step through K4-K7 at the NS train batch, sharded and not
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    xx = torch.rand((TRAIN_BATCH, NVAR, NX, NY, T_IN), generator=gen, device=device)
+    yy = torch.rand((TRAIN_BATCH, NVAR, NX, NY, T_OUT), generator=gen, device=device)
+    steps = []
+    for sharded in (True, False):
+        m = build_model(device).train()
+        opt = make_optimizer(m.parameters(), 5e-3)
+        apply = make_fused_train_apply(m)
+        step_fn = (make_sharded_train_step(apply, opt, STEP, T_OUT, lp_loss, mesh) if sharded
+                   else make_train_step(apply, opt, STEP, T_OUT, lp_loss))
+        loss, _ = step_fn(xx, yy)
+        steps.append((loss, [p.detach().clone() for p in m.parameters()]))
+    same_step = torch.equal(steps[0][0], steps[1][0]) and all(
+        torch.equal(a, b) for a, b in zip(steps[0][1], steps[1][1]))
+    got = window({"K4": 2 * 2 * 6 * n, "K5": 2 * 2 * n, "K6": 2 * 6 * n, "K7": 2 * n}, "train")
+    say("parallel-train", batch=TRAIN_BATCH, loss=f"{float(steps[0][0]):.6f}",
+        bitwise_loss_and_weights=same_step, launches=json.dumps(got, separators=(",", ":")))
+    if not same_step:
+        raise AssertionError("make_sharded_train_step differs from make_train_step")
+    del steps, xx, yy
+
+    # run_2d_cp(mesh=) through ns.run, samples and epochs cut
+    cfg = dict(NS_MESH_CFG)
+    t0 = time.perf_counter()
+    out = ns.run("joint", config=cfg, seed=SEED, verbose=False, device=device, mesh=mesh)
+    torch.cuda.synchronize()
+    c = dict(ns.CONFIG, **cfg)
+    steps_per_epoch = c["n_train"] // c["Batch Size"]
+    e = c["Epochs"]
+    # each epoch: its train steps and one evaluation rollout; then the CP rollout
+    got = window({"K2": 4, "K4": e * steps_per_epoch * 12 * n + e * 6 * n + 6 * n,
+                  "K5": e * steps_per_epoch * 2 * n + e * n + n,
+                  "K6": e * steps_per_epoch * 6 * n, "K7": e * steps_per_epoch * n},
+                 "run_2d_cp")
+    qhat = float(out["qhat"])
+    say("parallel-run", config=json.dumps(cfg), run_s=f"{time.perf_counter() - t0:.2f}",
+        solver_s=f"{out['data_time']:.2f}", qhat=f"{qhat:.6e}",
+        alphas=json.dumps([round(float(a), 3) for a in out["alphas"]]),
+        coverage_aer_pre=json.dumps([round(float(c), 3) for c in out["coverage_aer_pre"]]),
+        rollout_shape=list(out["pred_cal"].shape),
+        launches=json.dumps(got, separators=(",", ":")))
+    if not np.isfinite(qhat) or out["pred_pred"].shape[0] != cfg["n_pred"]:
+        raise AssertionError(f"run_2d_cp(mesh=): qhat {qhat}, {tuple(out['pred_pred'].shape)}")
+    del out
+
+    # a halo stencil, an FFT round trip and a pp = 1 pipelined forward
+    field = torch.randn((4, T_OUT, NX, NY), generator=gen, device=device)
+    kern = np.random.default_rng(SEED).standard_normal((3, 3, 3)).astype(np.float32)
+    sp = make_mesh(axis_names=("sp", "_"))
+    halo_same = torch.equal(stencil_conv_sharded(field, kern, sp).full_tensor(),
+                            direct_conv(field, kern))
+    back = ifft2_sharded(fft2_sharded(field, sp), sp).full_tensor().real
+    fft_err, _ = compare("fft2 round trip", back, field, 1e-5)
+    pp = make_mesh(axis_names=("pp", "_"))
+    with torch.no_grad():
+        pp_err, _ = compare("pp=1 apply", make_pp_fno_apply(model, pp)(x[:8]), model(x[:8]),
+                            5e-6)
+    got = window({}, "halo/fft/pp")
+    say("parallel-sp-pp", halo_bitwise=halo_same, fft_roundtrip_max_err=f"{fft_err:.3e}",
+        pp1_vs_model_max_err=f"{pp_err:.3e}", launches=json.dumps(got, separators=(",", ":")))
+    if not halo_same:
+        raise AssertionError("stencil_conv_sharded differs from direct_conv")
+    check_path("parallel", total)
+    say("parallel", phase_s=f"{time.perf_counter() - t_phase:.2f}",
+        launches=json.dumps({k: v for k, v in total.items() if v}, separators=(",", ":")))
+    torch.cuda.empty_cache()
+    return {"parallel": total}
+
+
+def phase_utils(device):
+    """The utilities: `benchmark()` of the fused forward beside CUDA events,
+    `trace()` of one forward (the kernels it holds), matplotlib and with it
+    `plots_dir` for run_2d_cp and run_efit, and `run_all()`: every pipeline
+    must be ok."""
+    import importlib.util
+
+    import torch
+    from cppre_torch.experiments import gs, wave
+    from cppre_torch.experiments.run_all import run_all
+    from cppre_torch.models import fno2d_forward_fused
+    from cppre_torch.utils import benchmark, trace
+
+    t_phase = time.perf_counter()
+    model = build_model(device)
+    x = torch.rand((N_CAL, NVAR, NX, NY, T_IN), generator=torch.Generator(device=device)
+                   .manual_seed(SEED + 11), device=device)
+    fwd = lambda: fno2d_forward_fused(model, x)
+    b = benchmark(fwd, num_iterations=REPS)
+    say("utils-benchmark", what="fno2d_forward_fused", batch=N_CAL,
+        benchmark_mean_ms=f"{b.mean * 1e3:.4f}", benchmark_std_ms=f"{b.std * 1e3:.4f}",
+        cuda_ms=f"{cuda_ms(fwd):.4f}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as logdir:
+        with trace(logdir):
+            fwd()
+        files = os.listdir(logdir)
+        with open(os.path.join(logdir, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sorted({re.split(r"[<(]", re.sub(r"^(void )?(\(anonymous namespace\)::)?", "",
+                                                e["name"]))[0]
+                      for e in events if e.get("cat") == "kernel"})
+    say("utils-trace", files=len(files), events=len(events), kernels=json.dumps(kernels))
+    if not any("block_out_tile_kernel" in k for k in kernels):
+        raise AssertionError(f"the trace holds none of K4's kernels: {kernels}")
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    say("utils-matplotlib", present=has_mpl)
+    if has_mpl:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_plots_") as d:
+            cfg = {"Epochs": 1, "n_train": 10, "n_cal": 20, "n_pred": 10,
+                   "plots_dir": os.path.join(d, "wave")}
+            wave.run("joint", config=cfg, verbose=False, device=device)
+            gs.run_efit(verbose=False, plots_dir=os.path.join(d, "efit"), device=device)
+            say("utils-plots", wave=json.dumps(sorted(os.listdir(cfg["plots_dir"]))),
+                efit=json.dumps(sorted(os.listdir(os.path.join(d, "efit")))))
+    t0 = time.perf_counter()
+    results = run_all(device=device)
+    for name, r in results.items():
+        say("run-all", pipeline=name, ok=r["ok"],
+            wall_s=r.get("wall_s", "none"), error=r.get("error", "none"))
+    failed = [k for k, r in results.items() if not r["ok"]]
+    say("utils", run_all_s=f"{time.perf_counter() - t0:.2f}",
+        pipelines_ok=f"{len(results) - len(failed)}/{len(results)}",
+        phase_s=f"{time.perf_counter() - t_phase:.2f}")
+    if failed:
+        raise AssertionError(f"run_all: pipelines failed: {failed}")
+
+
 def main():
     import torch
 
@@ -2840,6 +3116,8 @@ def main():
     windows.update(phase_sets_node(device))
     windows.update(phase_scaling(results, device))
     windows.update(phase_flat(results, device))
+    windows.update(phase_parallel(device))
+    phase_utils(device)
 
     kernels = []
     names = {("K1", "ns"): "ns_joint_cp_diff_stats", ("K2", "ns"): "ns_momentum_residual_fused",

@@ -20,6 +20,12 @@ through the hand-written FNO kernels (`models.fused.make_fused_apply`).
 Serving batches may differ in size from the calibration batch: the fused
 forward of a sample does not depend on its batch, so the CP
 exchangeability contract survives the shape change.
+
+`mesh=` (a `parallel.make_mesh` mesh with a 'dp' axis; call on every rank)
+splits every rollout's batch over 'dp': each rank rolls out and takes the
+residual of its block, zero-padded to the block length, and the results
+are cropped and gathered, so every rank holds the same state and
+answers.
 """
 
 from __future__ import annotations
@@ -67,11 +73,15 @@ class CalibratedSurrogate:
     fused : route rollouts through the hand-written FNO kernels
         (`models.fused.make_fused_apply`; on the card a shape they do not
         take raises).
+    mesh : optional `parallel.Mesh` with a 'dp' axis: rollouts and their
+        residuals run on each rank's rows (with ``fused``, through
+        `parallel.make_sharded_fused_apply`'s per-rank apply), gathered.
     """
 
     def __init__(self, model, residual_fn: Callable, *, step: int, T_out: int,
                  in_normalizer=None, out_normalizer=None, mode: str = "joint",
-                 score: str = "pre", layout_fn: Callable = _to_convops, fused: bool = False):
+                 score: str = "pre", layout_fn: Callable = _to_convops, fused: bool = False,
+                 mesh=None):
         if mode not in ("joint", "marginal"):
             raise ValueError(f"unknown mode {mode!r}")
         if score not in ("pre", "aer+pre"):
@@ -90,6 +100,10 @@ class CalibratedSurrogate:
         self.mode, self.score = mode, score
         self.layout_fn = layout_fn
         self.fused = fused
+        self.mesh = mesh
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the model lives on {self.device}, the mesh's rank on "
+                             f"{mesh.device}")
         # calibration state (set by calibrate()/load())
         self.alpha = None
         self.qhat = None        # 0-d (joint) or field (marginal)
@@ -102,19 +116,31 @@ class CalibratedSurrogate:
         return torch.as_tensor(a, dtype=torch.float32).to(self.device)
 
     def _apply_fn(self):
+        if self.fused and self.mesh is not None:
+            from .parallel import make_sharded_fused_apply
+
+            return make_sharded_fused_apply(self.model, self.mesh).local
         if self.fused:
             from .models.fused import make_fused_apply
 
             return make_fused_apply(self.model)
         return self.model
 
+    def _rollout_rows(self, a_raw, apply_fn):
+        a = self.in_norm.encode(a_raw)
+        pred = self.out_norm.decode(autoregressive_rollout(apply_fn, a, self.step, self.T_out))
+        return pred, self.residual_fn(self.layout_fn(pred))
+
     @torch.no_grad()
     def _rollout(self, a_raw):
         """(prediction [B, Nvar, Nx, Ny, T_out] decoded, its residual)."""
-        a = self.in_norm.encode(self._as_input(a_raw))
-        pred = self.out_norm.decode(
-            autoregressive_rollout(self._apply_fn(), a, self.step, self.T_out))
-        return pred, self.residual_fn(self.layout_fn(pred))
+        apply_fn = self._apply_fn()
+        if self.mesh is None:
+            return self._rollout_rows(self._as_input(a_raw), apply_fn)
+        from .parallel import map_batch
+
+        return map_batch(lambda rows: self._rollout_rows(rows, apply_fn), self.mesh,
+                         self._as_input(a_raw))
 
     # -- calibration -------------------------------------------------------
 
@@ -241,7 +267,7 @@ class CalibratedSurrogate:
 
     @classmethod
     def load(cls, prefix: str, model, residual_fn: Callable, *,
-             layout_fn: Callable = _to_convops, fused: bool = False):
+             layout_fn: Callable = _to_convops, fused: bool = False, mesh=None):
         """Rebuild a serving object from :meth:`save`'s bundle; the weights
         are loaded into `model` (built with the same configuration)."""
         from .utils.checkpoint import load_checkpoint, load_norms
@@ -252,7 +278,7 @@ class CalibratedSurrogate:
         in_norm, out_norm = load_norms(prefix, device=next(model.parameters()).device)
         srv = cls(model, residual_fn, step=meta["step"], T_out=meta["T_out"],
                   in_normalizer=in_norm, out_normalizer=out_norm, mode=meta["mode"],
-                  score=meta["score"], layout_fn=layout_fn, fused=fused)
+                  score=meta["score"], layout_fn=layout_fn, fused=fused, mesh=mesh)
         cp_z = np.load(prefix + "_cp.npz")
         dev = srv.device
         srv.qhat = torch.as_tensor(cp_z["qhat"], device=dev)

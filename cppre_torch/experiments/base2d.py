@@ -20,8 +20,14 @@ and the scope reaches only the glue's products); "bf16" autocasts a plain
 training apply to bfloat16 activations and refuses `fused_train`, as cppre
 does. The calibration and prediction rollouts always run at "highest".
 
-Not ported yet, and refused with NotImplementedError rather than run some
-other way: `mesh=` (the parallel layer) and `plots_dir` (plots).
+`mesh=` (a `parallel.make_mesh` mesh with a 'dp' axis; call on every
+rank) splits the CP phase over 'dp': the one CP batch is zero-padded to a
+multiple of dp, each rank rolls out its block (through
+`parallel.make_sharded_fused_apply`'s per-rank apply with `fused_forward`),
+and the rollout is cropped and gathered before the residuals and CP, so
+every rank returns the same results. `cfg["plots_dir"]` saves the
+coverage figure and a field panel there (`utils.plot_tools`; needs
+matplotlib; on a mesh rank 0 writes them).
 """
 
 from __future__ import annotations
@@ -31,12 +37,13 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed
 
 from ..models import FNO2d, make_fused_apply, make_fused_train_apply, with_train_precision
 from ..train.loops import fit
 from ..train.losses import lp_loss
 from ..train.normalizers import Identity, MinMaxNormalizer
-from ..train.rollout import validation_AR
+from ..train.rollout import autoregressive_rollout, validation_AR
 from .pipeline import joint_cp, marginal_cp
 
 __all__ = ["run_2d_cp"]
@@ -58,10 +65,9 @@ def run_2d_cp(*, data, residual_fn: Callable, cfg: dict, mode: str = "joint", pa
     Returns the JAX package's result keys, with "model" (the trained
     `FNO2d`) in place of "params", and "train_losses" (per-epoch (train,
     test) losses; empty when `params` was given)."""
-    if mesh is not None:
-        raise NotImplementedError("run_2d_cp(mesh=...) waits for the port's parallel layer")
-    if cfg.get("plots_dir"):
-        raise NotImplementedError("plots (cfg['plots_dir']) are not ported yet")
+    if mesh is not None and torch.device(device).type != mesh.device_type:
+        raise ValueError(f"device {device!r} and the mesh's device type "
+                         f"{mesh.device_type!r} differ")
     if mode not in ("joint", "marginal"):
         raise ValueError(f"unknown mode {mode!r}")
     T_in, T_out, step = cfg["T_in"], cfg["T_out"], cfg["Step"]
@@ -101,7 +107,13 @@ def run_2d_cp(*, data, residual_fn: Callable, cfg: dict, mode: str = "joint", pa
         model.load_state_dict(params)
     train_time = time.perf_counter() - t0
     model.eval()
-    apply_fn = make_fused_apply(model) if fused_forward else model
+    if fused_forward and mesh is not None:
+        from ..parallel import make_sharded_fused_apply
+
+        apply_fn = make_sharded_fused_apply(model, mesh)
+        local_apply = apply_fn.local
+    else:
+        apply_fn = local_apply = make_fused_apply(model) if fused_forward else model
 
     # Calibration and prediction samples come from the tail of the data and
     # are rolled out in ONE batched call, split after: identical numerics
@@ -111,7 +123,16 @@ def run_2d_cp(*, data, residual_fn: Callable, cfg: dict, mode: str = "joint", pa
     a_cp = torch.cat((a_enc[cal_sl], a_enc[pred_sl]))
     u_cp = torch.cat((u_enc[cal_sl], u_enc[pred_sl]))
     with torch.no_grad():
-        pred_all, _, _ = validation_AR(apply_fn, a_cp, u_cp, step, T_out)
+        if mesh is None:
+            pred_all, _, _ = validation_AR(apply_fn, a_cp, u_cp, step, T_out)
+        else:
+            # each rank rolls out its block of the one batch, zero-padded to
+            # the block length (samples are independent: pad rows never
+            # touch real ones); gathered and cropped on every rank
+            from ..parallel import map_batch
+
+            pred_all = map_batch(lambda a: autoregressive_rollout(local_apply, a, step, T_out),
+                                 mesh, a_cp)
         pred_cal, pred_pred = pred_all[:n_cal], pred_all[n_cal:n_cal + n_pred]
         # metrics on the calibration slice only
         mse = torch.mean((pred_cal - u_enc[cal_sl]) ** 2)
@@ -155,6 +176,10 @@ def run_2d_cp(*, data, residual_fn: Callable, cfg: dict, mode: str = "joint", pa
     if return_residuals:
         results.update(res_out_cal=res_out_cal, res_pred_cal=res_pred_cal, res_pred=res_pred,
                        res_out_pred=res_out_pred)
+    if cfg.get("plots_dir") and (mesh is None or torch.distributed.get_rank() == 0):
+        from ..utils.plot_tools import save_experiment_artifacts
+
+        save_experiment_artifacts(results, cfg["plots_dir"], cfg.get("Case", "experiment"))
     if verbose:
         for a, c1, c2 in zip(results["alphas"], results["coverage_aer_pre"],
                              results["coverage_pre"]):

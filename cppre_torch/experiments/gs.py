@@ -210,13 +210,13 @@ def run_efit(psi_true=None, psi_pred=None, R=None, dr=None, dz=None, alphas=None
     """Marginal CP over (psi_true, psi_pred) pairs (`EFIT/EFIT_cp.py:36-110`):
     the first 60 % calibrate, the rest are predicted. Without arguments, a
     synthetic Solov'ev ensemble (400 at 64^2) with predictions perturbed by
-    0.003 N(0, 1) noise from `seed`. `plots_dir` (the tokamak-wall contour
-    figure) is not ported yet. Returns `marginal_cp`'s dict."""
-    if plots_dir is not None:
-        raise NotImplementedError("run_efit(plots_dir=...) waits for the port's plots "
-                                  "(ROADMAP Queue 1 item 7)")
+    0.003 N(0, 1) noise from `seed`. With `plots_dir`, saves the tokamak-wall
+    contour overlay of a prediction residual and the per-cell CP bound,
+    `efit_wall_contour.pdf` (needs matplotlib); `wall` optionally supplies
+    the machine polyline [N, 2]. Returns `marginal_cp`'s dict."""
     if psi_true is not None and (R is None or dr is None or dz is None):
         raise ValueError("run_efit with explicit psi arrays requires R, dr, dz")
+    Z = None
     if psi_true is None:
         R, Z, _, psi = solovev_batch(400, 64, 64, seed=seed)
         dr, dz = float(R[1] - R[0]), float(Z[1] - Z[0])
@@ -235,6 +235,25 @@ def run_efit(psi_true=None, psi_pred=None, R=None, dr=None, dz=None, alphas=None
     if verbose:
         for a, c in zip(out["alphas"], out["coverage"]):
             print(f"alpha={a:.2f}  coverage={c:.3f}")
+    if plots_dir is not None:
+        import os
+
+        import matplotlib.pyplot as plt
+
+        from ..cp.inductive import calibrate
+        from ..utils.plot_tools import wall_contour_figure
+
+        os.makedirs(plots_dir, exist_ok=True)
+        if Z is None:
+            nz = np.asarray(psi_true).shape[-1]
+            Z = (np.arange(nz) - (nz - 1) / 2.0) * dz
+        # the reference's "Residual and Error Bar" overlay: one prediction
+        # residual against the per-cell qhat at alpha=0.5
+        q_plot = calibrate(torch.abs(res_true[cal] - res_pred[cal]), ncal, 0.5)
+        fig = wall_contour_figure(np.asarray(R).reshape(-1)[1:-1], np.asarray(Z).reshape(-1)[1:-1],
+                                  res_pred[prd][0], q_plot, wall=wall,
+                                  save_path=os.path.join(plots_dir, "efit_wall_contour.pdf"))
+        plt.close(fig)
     return out
 
 

@@ -24,6 +24,8 @@ import numpy as np
 import torch
 
 from ..cp.inductive import calibrate, emp_cov, emp_cov_joint
+from ..models.fused import make_fused_apply
+from ..train.rollout import autoregressive_rollout
 from . import validation as V
 
 __all__ = ["evaluate_uq_methods"]
@@ -81,11 +83,19 @@ def evaluate_uq_methods(
     the host: identical statistics, bounded device memory. For AER/PRE the
     pieces carry per-sim scores and the conformal quantile is taken once
     over the concatenated scores. `on_method_done(uq, result)` fires after
-    each method's resample loop. `mesh=` waits for the port's parallel
-    layer and raises NotImplementedError."""
-    if mesh is not None:
-        raise NotImplementedError("evaluate_uq_methods(mesh=...) waits for the port's parallel "
-                                  "layer (ROADMAP Queue 1 item 6)")
+    each method's resample loop.
+
+    `mesh` (a `parallel.make_mesh` mesh with a 'dp' axis; call on every
+    rank) splits each validation over 'dp': each rank runs the method on
+    its rows of the resample, zero-padded to the block length, and the
+    rollouts come back cropped and gathered; L2/MAE are taken on the
+    gathered mean, and for AER/PRE the conformal quantile over the
+    gathered rollout, so pad rows never enter calibration. Stochastic
+    methods draw as a chunked run does: every rank's piece starts from the
+    resample's seed. `mesh=` with `batch_chunk=` raises ValueError."""
+    if mesh is not None and batch_chunk:
+        raise ValueError("mesh= and batch_chunk= are exclusive: chunking is a single-device "
+                         "memory knob; on a mesh the batch is already divided across ranks")
     rng = np.random.default_rng(seed)
     results = {}
     test_a = torch.as_tensor(test_a, dtype=torch.float32)
@@ -109,7 +119,22 @@ def evaluate_uq_methods(
             qhat = host_scores = None
             sync()
             t1 = time.perf_counter()
-            if uq in ("AER", "PRE"):
+            if mesh is not None:
+                from ..parallel import map_batch
+
+                if uq in ("AER", "PRE"):
+                    with torch.no_grad():
+                        pred = map_batch(lambda a_p: autoregressive_rollout(
+                            make_fused_apply(model), a_p, step, T_out), mesh, a)
+                        mean, qhat, mse, mae = (
+                            V._aer_from_rollout(pred, u, alpha) if uq == "AER"
+                            else V._pre_from_rollout(pred, u, alpha, pre))
+                else:
+                    mean, std = map_batch(lambda a_p, u_p: _validate(
+                        uq, model, aux, a_p, u_p, step, T_out, samples, gen())[:2], mesh, a, u)
+                    mse = torch.mean((mean - u) ** 2)
+                    mae = torch.mean(torch.abs(mean - u))
+            elif uq in ("AER", "PRE"):
                 if chunked:
                     # rollout + per-sim scores in pieces, then ONE conformal
                     # quantile over the concatenated scores

@@ -176,12 +176,20 @@ def _pre_scores(pre, pred):
     return torch.abs(pre.residual(pred.permute(0, 1, 4, 2, 3)))
 
 
+def _aer_from_rollout(pred, test_u, alpha):
+    qhat = calibrate(torch.abs(pred - test_u), pred.shape[0], alpha)
+    return (pred, qhat) + _metrics(pred, test_u)
+
+
+def _pre_from_rollout(pred, test_u, alpha, pre):
+    qhat = calibrate(_pre_scores(pre, pred), pred.shape[0], alpha)
+    return (pred, qhat) + _metrics(pred, test_u)
+
+
 @torch.no_grad()
 def validation_aer(model, test_a, test_u, step, T_out, alpha):
     """Absolute-error-residual CP: qhat from |pred - truth|."""
-    pred = _rollout(model, test_a, test_u, step, T_out)
-    qhat = calibrate(torch.abs(pred - test_u), pred.shape[0], alpha)
-    return (pred, qhat) + _metrics(pred, test_u)
+    return _aer_from_rollout(_rollout(model, test_a, test_u, step, T_out), test_u, alpha)
 
 
 @torch.no_grad()
@@ -189,9 +197,7 @@ def validation_pre(model, test_a, test_u, step, T_out, alpha, pre):
     """Physics-residual CP: qhat from |PRE(pred)|. `pre` has
     `.residual(fields)` over [B, Nvar, Nt, Nx, Ny] (`uq.data_loaders`' PREs
     launch their kernel on the card)."""
-    pred = _rollout(model, test_a, test_u, step, T_out)
-    qhat = calibrate(_pre_scores(pre, pred), pred.shape[0], alpha)
-    return (pred, qhat) + _metrics(pred, test_u)
+    return _pre_from_rollout(_rollout(model, test_a, test_u, step, T_out), test_u, alpha, pre)
 
 
 @torch.no_grad()

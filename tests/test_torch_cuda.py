@@ -1492,3 +1492,96 @@ def test_remat_policies_on_the_card(dev, fused):
         _close(loss, ref_loss, 1e-6)
         for g, r in zip(grads, ref):
             _close(g, r, 1e-6)
+
+
+# ---- the parallel layer on a one-rank mesh over the card (NCCL) ---------------
+
+@pytest.fixture
+def mesh(dev):
+    from cppre_torch.parallel import make_mesh
+
+    m = make_mesh()
+    assert m.shape == {"dp": 1, "tp": 1} and m.device == dev
+    assert "nccl" in str(torch.distributed.get_backend())
+    return m
+
+
+def test_sharded_cp_scores_and_calibrate_on_the_card(dev, mesh):
+    """K1's centred form on the one rank: the two-pass scores bit for bit."""
+    from cppre_torch.cp import calibrate
+    from cppre_torch.parallel import sharded_calibrate, sharded_fused_cp_scores
+
+    t = _randn((12, 3, 9, 20, 24), 120, dev)
+    p = t + 0.01 * _randn(t.shape, 121, dev)
+    ref = sk.ns_joint_cp_scores_fused(t, p, *ARGS)
+    cell = sk._ns_cell(*ARGS)
+    fn = lambda a, b: sk._diff_stats_routed(a, b, cell, 1, None, "ns", centred=True)
+    K.reset_launch_counts()
+    scores = sharded_fused_cp_scores(fn, t, p, mesh)
+    assert K.launch_counts()["K1"] == 1
+    assert torch.equal(scores.full_tensor(), ref)
+    assert torch.equal(sharded_calibrate(scores, 0.1, mesh), calibrate(ref, 12, 0.1))
+    # cppre's (diff, sum, sumsq) contract: m2 formed from the diff, 1e-6
+    plain = sharded_fused_cp_scores(lambda a, b: sk.ns_joint_cp_diff_stats(a, b, *ARGS), t, p,
+                                    mesh)
+    _close(plain.full_tensor(), ref, 1e-6)
+
+
+def test_sharded_fused_apply_and_train_step_on_the_card(dev, mesh):
+    from cppre_torch.parallel import make_sharded_fused_apply, make_sharded_train_step
+
+    model = FNO2d(1, 1, 4, 4, 2, 8, device=dev, generator=torch.Generator().manual_seed(122))
+    x = _randn((5, 2, 20, 18, 1), 123, dev)
+    K.reset_launch_counts()
+    assert torch.equal(make_sharded_fused_apply(model, mesh)(x), fno2d_forward_fused(model, x))
+    assert K.launch_counts()["K4"] == 12 and K.launch_counts()["K5"] == 2
+    xx, yy = _randn((2, 2, 20, 18, 1), 124, dev), _randn((2, 2, 20, 18, 3), 125, dev)
+    out = []
+    for sharded in (True, False):
+        m = FNO2d(1, 1, 4, 4, 2, 8, device=dev, generator=torch.Generator().manual_seed(126))
+        opt = make_optimizer(m.parameters(), 1e-3)
+        apply = make_fused_train_apply(m)
+        step = (make_sharded_train_step(apply, opt, 1, 3, lp_loss, mesh) if sharded
+                else make_train_step(apply, opt, 1, 3, lp_loss))
+        K.reset_launch_counts()
+        loss, _ = step(xx, yy)
+        assert all(K.launch_counts()[k] > 0 for k in ("K4", "K5", "K6", "K7"))
+        out.append((loss, [p.detach().clone() for p in m.parameters()]))
+    assert torch.equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+
+
+def test_halo_fft_and_pipeline_on_the_card(dev, mesh):
+    from cppre_torch.ops.convops import direct_conv
+    from cppre_torch.parallel import (fft2_sharded, ifft2_sharded, make_mesh,
+                                      make_pp_fno_apply, stencil_conv_sharded)
+
+    field = _randn((2, 6, 32, 16), 127, dev)
+    kernel = np.random.default_rng(128).standard_normal((3, 3, 3)).astype(np.float32)
+    sp = make_mesh(axis_names=("sp", "_"))
+    assert torch.equal(stencil_conv_sharded(field, kernel, sp).full_tensor(),
+                       direct_conv(field, kernel))
+    x = field[0, 0]
+    back = ifft2_sharded(fft2_sharded(x, sp), sp).full_tensor()
+    _close(back.real, x, 1e-5)
+    model = FNO2d(1, 1, 4, 4, 2, 8, device=dev, generator=torch.Generator().manual_seed(129))
+    xb = _randn((3, 2, 20, 18, 1), 130, dev)
+    pp = make_mesh(axis_names=("pp", "_"))
+    with torch.no_grad():
+        _close(make_pp_fno_apply(model, pp)(xb), model(xb), 5e-6)
+
+
+def test_calibrated_surrogate_mesh_on_the_card(dev, mesh):
+    from cppre_torch.deploy import CalibratedSurrogate
+
+    model = FNO2d(1, 1, 4, 4, 3, 8, device=dev, generator=torch.Generator().manual_seed(131))
+    a, u = _randn((9, 3, 20, 18, 1), 132, dev), _randn((9, 3, 20, 18, 4), 133, dev)
+    res = lambda f: K.ns_momentum_residual_fused(f, *ARGS)
+    got = []
+    for m in (None, mesh):
+        srv = CalibratedSurrogate(model, res, step=1, T_out=4, score="aer+pre", fused=True,
+                                  mesh=m).calibrate(a[:6], u[:6], alpha=0.2)
+        got.append((srv.qhat, srv.predict(a[6:])))
+    assert torch.equal(got[0][0], got[1][0])
+    for k in ("prediction", "residual", "accept"):
+        assert torch.equal(got[0][1][k], got[1][1][k])

@@ -23,6 +23,8 @@ Tolerances:
 * `load_efit_csv`: exact.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -207,12 +209,12 @@ def test_freegsnke_inr_pipeline_coverage():
     assert np.all(np.isfinite(out["coverage_joint"]))
 
 
-def test_efit_pipeline_coverage():
+def test_efit_pipeline_coverage(tmp_path):
     out = gs.run_efit(seed=0, verbose=False, device="cpu")
     ideal = 1 - out["alphas"]
     assert np.all(out["coverage"] >= ideal - 0.05)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        gs.run_efit(seed=0, verbose=False, device="cpu", plots_dir="plots")
+    gs.run_efit(seed=0, verbose=False, device="cpu", plots_dir=str(tmp_path))
+    assert os.listdir(tmp_path) == ["efit_wall_contour.pdf"]
 
 
 def test_load_efit_csv_and_run_efit_on_it(tmp_path):

@@ -3,9 +3,6 @@
 and the port imports nothing of JAX or of `cppre`.
 
 The only gaps allowed:
-* modules waiting for a later slice: `parallel/*` (the parallel layer,
-  `mesh=`) and the utilities `utils/{benchmark,profiling,runlog,
-  plot_tools}.py` and `experiments/run_all.py` (with `plots_dir`);
 * modules given no port: `utils/{torch_compat,tpu_bench,jax_cache}.py`;
 * `ops/pallas/*` pairs with `ops/kernels/*`, less the TPU VMEM estimates.
 """
@@ -21,13 +18,11 @@ import cppre
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
-WAITING = ("cppre.parallel", "cppre.utils.benchmark", "cppre.utils.profiling",
-           "cppre.utils.runlog", "cppre.utils.plot_tools", "cppre.experiments.run_all")
+WAITING = ()
 NO_PORT = ("cppre.utils.torch_compat", "cppre.utils.tpu_bench", "cppre.utils.jax_cache")
 # names whose module waits or has no port, re-exported by a package
 NAME_GAPS = {
-    "cppre.utils": {"Benchmark", "NoOpRun", "Run", "assert_almost_equal", "benchmark", "timer",
-                    "trace", "fno_params_from_torch", "load_torch_fno"},
+    "cppre.utils": {"fno_params_from_torch", "load_torch_fno"},
     "cppre.ops.pallas": {"single_pass_fits"},
     "cppre.ops.pallas.fno_block": {"fused_block_vmem_est", "fused_block_bwd_vmem_est"},
 }
@@ -54,8 +49,10 @@ def test_every_module_has_its_port_with_the_same_names(name):
 
 
 def test_waiting_modules_are_still_missing():
-    """A module that comes in a later slice must leave this list then."""
-    for name in WAITING + NO_PORT:
+    """No module waits for a later slice; the modules given no port stay
+    absent."""
+    assert WAITING == ()
+    for name in NO_PORT:
         with pytest.raises(ModuleNotFoundError):
             importlib.import_module(_port_name(name))
 

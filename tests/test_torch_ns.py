@@ -14,6 +14,8 @@ Tolerances:
   0.5% of the cells.
 """
 
+import types
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -143,6 +145,6 @@ def test_ns_run_end_to_end_tiny(mode, variables):
     assert len(out["coverage_aer_pre"]) == len(out["alphas"])
     if variables == 4:
         assert len(out["bc_coverage"]) == len(out["alphas"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="differ"):
         base2d.run_2d_cp(data=np.zeros((8, 3, 8, 8, 3), np.float32), residual_fn=None,
-                         cfg=CFG, mesh=object(), device="cpu")
+                         cfg=CFG, mesh=types.SimpleNamespace(device_type="cuda"), device="cpu")

@@ -416,8 +416,8 @@ def test_evaluate_uq_methods_matches_cppre():
     for m in methods:
         np.testing.assert_allclose(chunked[m]["l2"], full[m]["l2"], rtol=0,
                                    atol=1e-5 * full[m]["l2"][0], err_msg=m)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        teval.evaluate_uq_methods(model_factory=None, mesh=object(), **kw)
+    with pytest.raises(ValueError, match="exclusive"):
+        teval.evaluate_uq_methods(model_factory=None, mesh=object(), batch_chunk=3, **kw)
 
 
 def test_run_eval_wave_end_to_end():
