@@ -20,6 +20,8 @@ import math
 
 import torch
 
+from ..utils.profiling import span
+
 __all__ = [
     "calibrate",
     "cp_quantile_level",
@@ -76,11 +78,13 @@ def emp_cov(prediction_sets, y_response) -> float:
 
 
 def filter_sims_joint(prediction_sets, y_response):
-    """Boolean mask of samples entirely inside the joint sets."""
+    """Boolean mask of samples entirely inside the joint sets (the span
+    `cp.accept`)."""
     lower, upper = prediction_sets
     y = _t(y_response)
-    inside = (y >= lower) & (y <= upper)
-    return inside.reshape(y.shape[0], -1).all(dim=1)
+    with span("cp.accept", y):
+        inside = (y >= lower) & (y <= upper)
+        return inside.reshape(y.shape[0], -1).all(dim=1)
 
 
 def emp_cov_joint(prediction_sets, y_response) -> float:
@@ -105,11 +109,12 @@ def ncf_metric_joint(a, b, modulation):
 
 def filter_sims_within_bounds(lower_bound, upper_bound, samples, threshold, within=False):
     """Boolean mask of samples whose fraction of cells in (within=True) or
-    out (within=False) of the bounds is >= threshold."""
+    out (within=False) of the bounds is >= threshold (the span `cp.accept`)."""
     samples = _t(samples)
     lower, upper = _t(lower_bound), _t(upper_bound)
-    if within:
-        mask = (samples >= lower) & (samples <= upper)
-    else:
-        mask = (samples <= lower) | (samples >= upper)
-    return mask.float().mean(dim=_rest(samples)) >= threshold
+    with span("cp.accept", samples):
+        if within:
+            mask = (samples >= lower) & (samples <= upper)
+        else:
+            mask = (samples <= lower) | (samples >= upper)
+        return mask.float().mean(dim=_rest(samples)) >= threshold

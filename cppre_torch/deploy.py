@@ -26,6 +26,12 @@ splits every rollout's batch over 'dp': each rank rolls out and takes the
 residual of its block, zero-padded to the block length, and the results
 are cropped and gathered, so every rank holds the same state and
 answers.
+
+Under a `torch.profiler` or `utils.profiling.recording()`, `predict` records
+the span `serve.predict` around the request, and in it `serve.rollout`
+(encode, rollout, decode), then `serve.layout` (`_to_convops`),
+`pre.residual` (the fused residual entries), `cp.sets` (`sets`) and
+`cp.accept` (the filters), each where that work runs.
 """
 
 from __future__ import annotations
@@ -45,14 +51,16 @@ from .cp.inductive import (
     ncf_metric_joint,
 )
 from .train.rollout import autoregressive_rollout
+from .utils.profiling import span
 
 __all__ = ["CalibratedSurrogate"]
 
 
 def _to_convops(field):
     """[BS, Nvar, Nx, Ny, Nt] -> contiguous [BS, Nvar, Nt, Nx, Ny] (the
-    reference's permute(0, 1, 4, 2, 3))."""
-    return field.permute(0, 1, 4, 2, 3).contiguous()
+    reference's permute(0, 1, 4, 2, 3)); the span `serve.layout`."""
+    with span("serve.layout", field):
+        return field.permute(0, 1, 4, 2, 3).contiguous()
 
 
 class CalibratedSurrogate:
@@ -127,8 +135,11 @@ class CalibratedSurrogate:
         return self.model
 
     def _rollout_rows(self, a_raw, apply_fn):
-        a = self.in_norm.encode(a_raw)
-        pred = self.out_norm.decode(autoregressive_rollout(apply_fn, a, self.step, self.T_out))
+        """The decoded rollout of rows `a_raw`, and their residual after it."""
+        with span("serve.rollout", self.device):
+            a = self.in_norm.encode(a_raw)
+            pred = self.out_norm.decode(autoregressive_rollout(apply_fn, a, self.step,
+                                                               self.T_out))
         return pred, self.residual_fn(self.layout_fn(pred))
 
     @torch.no_grad()
@@ -214,9 +225,10 @@ class CalibratedSurrogate:
         """Residual-space prediction sets around `residual`: centred at 0 for
         the 'pre' score, at the predicted residual for 'aer+pre'."""
         self._require_calibrated()
-        width = self._width()
-        center = torch.zeros_like(residual) if self.score == "pre" else residual
-        return center - width, center + width
+        with span("cp.sets", residual):
+            width = self._width()
+            center = torch.zeros_like(residual) if self.score == "pre" else residual
+            return center - width, center + width
 
     @torch.no_grad()
     def predict(self, a):
@@ -230,13 +242,15 @@ class CalibratedSurrogate:
         >= threshold), for both scores.
         """
         self._require_calibrated()
-        pred, res = self._rollout(a)
-        lo, hi = self.sets(res)
-        width = self._width()
-        if self.mode == "joint":
-            accept = filter_sims_joint((-width, width), res)
-        else:
-            accept = filter_sims_within_bounds(-width, width, res, self.threshold, within=True)
+        with span("serve.predict", self.device):
+            pred, res = self._rollout(a)
+            lo, hi = self.sets(res)
+            width = self._width()
+            if self.mode == "joint":
+                accept = filter_sims_joint((-width, width), res)
+            else:
+                accept = filter_sims_within_bounds(-width, width, res, self.threshold,
+                                                   within=True)
         return {"prediction": pred, "residual": res, "sets": (lo, hi), "accept": accept}
 
     # -- persistence -------------------------------------------------------

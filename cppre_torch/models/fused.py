@@ -46,6 +46,7 @@ from ..ops.kernels.fno_block import (
     projection2d_bwd_plain,
     projection2d_fused,
 )
+from ..utils.profiling import span
 from .fno import FNO2d, get_grid
 
 __all__ = ["fno2d_forward_fused", "fused_supported", "make_fused_apply",
@@ -128,9 +129,11 @@ def _bias_branch(block, grid_c):
 def _chain(model: FNO2d, x, block_fn, head_fn):
     """The FNO2d forward with its six blocks as block_fn(block, z, x3) and
     its head as head_fn(z [B, V, Nx, Ny, W]): lift, blocks with skip adds
-    every three, head."""
-    grid = get_grid(x.shape, x.device).to(x.dtype)
-    h = _lift(model.fc0_time, x, grid).permute(0, 4, 1, 2, 3).contiguous()
+    every three, head. The span `fno.lift` covers the grid, the lift and
+    its layout copy."""
+    with span("fno.lift", x):
+        grid = get_grid(x.shape, x.device).to(x.dtype)
+        h = _lift(model.fc0_time, x, grid).permute(0, 4, 1, 2, 3).contiguous()
     grid_c = grid[:1].permute(0, 4, 1, 2, 3)
     f = model.blocks()
 

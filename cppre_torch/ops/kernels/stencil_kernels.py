@@ -90,6 +90,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ...utils.profiling import span
 from ..convops import stencil_shift_add
 from . import _build
 
@@ -437,6 +438,17 @@ def _batched_residual_fused(fields, res: _Residual, what: str = "residual"):
 _batched_residual_fused.launches = 0
 
 
+def _pre_residual(entry):
+    """A public residual entry, run under the span `pre.residual` (the
+    served path's residual operator; on the fields' device)."""
+    @functools.wraps(entry)
+    def spanned(fields, *args, **kwargs):
+        with span("pre.residual", fields):
+            return entry(fields, *args, **kwargs)
+
+    return spanned
+
+
 def ns_momentum_residual_plain(fields, dt: float, dx: float, dy: float, nu: float = 0.001):
     """Plain PyTorch NS momentum residual: [BS, Nvar, Nt, Nx, Ny] -> [BS, Nt-2, Nx-2, Ny-2]."""
     res = _ns_cell(dt, dx, dy, nu)
@@ -444,6 +456,7 @@ def ns_momentum_residual_plain(fields, dt: float, dx: float, dy: float, nu: floa
     return res.math(fields)
 
 
+@_pre_residual
 def ns_momentum_residual_fused(fields, dt: float, dx: float, dy: float, nu: float = 0.001):
     """Fused NS momentum PRE (kernel K2): fields [BS, Nvar>=3, Nt, Nx, Ny]
     (u, v, p) -> interior residual [BS, Nt-2, Nx-2, Ny-2], equal to
@@ -459,6 +472,7 @@ def mhd_residual_plain(fields, equation: str = "induction"):
     return res.math(fields)
 
 
+@_pre_residual
 def mhd_residual_fused(fields, equation: str = "induction"):
     """Fused ideal-MHD PRE (kernel K2) for any of the five selectable
     equations: fields [BS, 6, Nt, Nx, Ny] (rho, u, v, p, Bx, By) -> interior
@@ -481,6 +495,7 @@ def jorek_residual_plain(fields, R, Dc: float = 3.4, K: float = 2.25e-7,
     return res.math(fields)
 
 
+@_pre_residual
 def jorek_residual_fused(fields, R, Dc: float = 3.4, K: float = 2.25e-7,
                          equation: str = "continuity"):
     """Fused JOREK reduced-MHD PRE (kernel K2): fields [BS, 3, Nt, NR, NZ]
@@ -671,6 +686,7 @@ def fused_stencil_residual_bwd(cotangent, kernel, pad: int = 0):
 fused_stencil_residual_bwd.launches = 0
 
 
+@_pre_residual
 def wave_residual_fused(field, kernel):
     """Fused wave composite-kernel PRE: field [BS, Nt, Nx, Ny], kernel the
     additive D_tt - (c dt/dx)^2 D_xxyy stencil. Kernel K8, named for the
